@@ -1,0 +1,100 @@
+"""Eval forward, counterpart of mcgaze_tpu/evaluation/forward.py.
+
+`make_eval_forward` builds the model on a device and returns two forwards
+over it, both run under torch.inference_mode():
+  fwd(imgs (N,H,W,3) u8|f32, whwh (N,4), t) -> (boxes (N,3,4),
+      scores (N,3), gazes {fusion, face, eyes, head} -> (N,3))
+  fwd_dedup(frames (U,H,W,3), sel (N,), whwh_u (U,4), t) -> the same,
+      with backbone + FPN run once per unique frame and each clip slot
+      reading frame sel[slot] (the RoIAlign kernel's frame_idx form).
+`bind_forward` adapts them to the driver's forward_fn signature.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD
+from ..models.mcgaze import MCGazeModel, ModelConfig, init_model
+from ..utils.env import resolve_device
+
+
+def device_normalize(imgs: torch.Tensor, whwh: torch.Tensor) -> torch.Tensor:
+    """uint8 frames -> ImageNet-normalised f32 with the pad region zeroed
+    AFTER normalising (the reference pads after Normalize, so the pad is 0
+    in normalised space). Float frames (normalised on the host) pass
+    through."""
+    if imgs.dtype != torch.uint8:
+        return imgs
+    mean = torch.as_tensor(IMAGENET_MEAN, device=imgs.device)
+    std = torch.as_tensor(IMAGENET_STD, device=imgs.device)
+    out = (imgs.to(torch.float32) - mean) / std
+    hh, ww = imgs.shape[-3], imgs.shape[-2]
+    xx = torch.arange(ww, device=imgs.device)[None, None, :]
+    yy = torch.arange(hh, device=imgs.device)[None, :, None]
+    valid = (xx < whwh[:, 0, None, None]) & (yy < whwh[:, 1, None, None])
+    return out * valid[..., None]
+
+
+def _last_stage(out):
+    last = out['stages'][-1]
+    return (last['boxes'], torch.sigmoid(last['cls_logits'])[..., 0],
+            last['gaze'])
+
+
+def make_eval_forward(model_cfg: ModelConfig, seed: int = 0,
+                      device='cuda', model: MCGazeModel | None = None):
+    """Returns (model, fwd, fwd_dedup). A seeded random model is built on
+    `device` unless `model` is given (e.g. one holding converted
+    weights)."""
+    if model is None:
+        model = init_model(model_cfg, seed, device)
+
+    @torch.inference_mode()
+    def fwd(imgs, whwh, t):
+        imgs = device_normalize(imgs, whwh)
+        return _last_stage(model(imgs, whwh, clip_length=t))
+
+    @torch.inference_mode()
+    def fwd_dedup(frames, sel, whwh_u, t):
+        frames = device_normalize(frames, whwh_u)
+        feats = model.extract_features(frames)
+        sel = sel.to(torch.int32)
+        out = model.run_heads(feats, whwh_u[sel.long()], clip_length=t,
+                              frame_idx=sel)
+        return _last_stage(out)
+
+    return model, fwd, fwd_dedup
+
+
+def to_device(x, device: torch.device) -> torch.Tensor:
+    """numpy or tensor -> tensor on `device`; host arrays go through
+    pinned memory and copy without blocking the host."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device, non_blocking=True)
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if device.type == 'cuda':
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
+def bind_forward(fwd, device, fwd_dedup=None):
+    """The driver's forward_fn: forward(imgs, whwh, t) with host or device
+    inputs, outputs left on the device. Marks itself accepts_uint8 (the
+    forwards normalise u8 on the device) and carries `.device`; with
+    fwd_dedup it also carries `.dedup(frames, sel, whwh_u, t)`, which the
+    driver prefers (EvalConfig.dedup_frames)."""
+    device = resolve_device(device)
+
+    def forward(imgs, whwh, t):
+        return fwd(to_device(imgs, device), to_device(whwh, device), t)
+
+    forward.accepts_uint8 = True
+    forward.device = device
+    if fwd_dedup is not None:
+        def dedup(frames, sel, whwh_u, t):
+            return fwd_dedup(to_device(frames, device), to_device(sel, device),
+                             to_device(whwh_u, device), t)
+
+        forward.dedup = dedup
+    return forward

@@ -1,0 +1,70 @@
+"""Box and gaze geometry on tensors.
+
+PyTorch counterpart of mcgaze_tpu/geometry.py (same formulas, same
+constants): the box converters, the DeltaXYWH decoder with
+clip_border=False, and the yaw/pitch <-> unit-vector maps. Every function
+works over any leading dims and a trailing coordinate dim.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+# DeltaXYWHBBoxCoder(target_means=0, target_stds=(.5, .5, 1, 1),
+# clip_border=False) of the shipped configs; wh_ratio_clip is mmdet's
+# default.
+DELTA_MEANS = (0.0, 0.0, 0.0, 0.0)
+DELTA_STDS = (0.5, 0.5, 1.0, 1.0)
+WH_RATIO_CLIP = 16.0 / 1000.0
+
+
+def bbox_cxcywh_to_xyxy(boxes: torch.Tensor) -> torch.Tensor:
+    """(..., 4) [cx, cy, w, h] -> [x1, y1, x2, y2]."""
+    cx, cy, w, h = boxes.unbind(-1)
+    return torch.stack([cx - w * 0.5, cy - h * 0.5,
+                        cx + w * 0.5, cy + h * 0.5], dim=-1)
+
+
+def delta2bbox(rois: torch.Tensor, deltas: torch.Tensor,
+               means=DELTA_MEANS, stds=DELTA_STDS,
+               wh_ratio_clip: float = WH_RATIO_CLIP) -> torch.Tensor:
+    """Decode (dx, dy, dw, dh) deltas against (..., 4) xyxy base boxes:
+    denormalise, clamp dw/dh to +-|log(wh_ratio_clip)|, shift and scale
+    the box. Returns (..., 4) xyxy."""
+    means = torch.as_tensor(means, dtype=deltas.dtype, device=deltas.device)
+    stds = torch.as_tensor(stds, dtype=deltas.dtype, device=deltas.device)
+    dx, dy, dw, dh = (deltas * stds + means).unbind(-1)
+    max_ratio = abs(math.log(wh_ratio_clip))
+    dw = dw.clamp(-max_ratio, max_ratio)
+    dh = dh.clamp(-max_ratio, max_ratio)
+
+    x1, y1, x2, y2 = rois.unbind(-1)
+    px = (x1 + x2) * 0.5
+    py = (y1 + y2) * 0.5
+    pw = x2 - x1
+    ph = y2 - y1
+
+    gx = px + pw * dx
+    gy = py + ph * dy
+    gw = pw * torch.exp(dw)
+    gh = ph * torch.exp(dh)
+    return torch.stack([gx - gw * 0.5, gy - gh * 0.5,
+                        gx + gw * 0.5, gy + gh * 0.5], dim=-1)
+
+
+def yaw_pitch_to_vector(x: torch.Tensor) -> torch.Tensor:
+    """(..., 2) [yaw, pitch] -> (..., 3) unit gaze vector (Gaze360
+    convention: cos(p) sin(y), sin(p), -cos(p) cos(y))."""
+    yaw, pitch = x[..., 0], x[..., 1]
+    return torch.stack([torch.cos(pitch) * torch.sin(yaw),
+                        torch.sin(pitch),
+                        -torch.cos(pitch) * torch.cos(yaw)], dim=-1)
+
+
+def vector_to_yaw_pitch(x: torch.Tensor) -> torch.Tensor:
+    """(..., 3) gaze vector -> (..., 2) [yaw, pitch] (normalises first)."""
+    x = x / torch.linalg.norm(x, dim=-1, keepdim=True)
+    yaw = torch.atan2(x[..., 0], -x[..., 2])
+    pitch = torch.asin(x[..., 1].clamp(-1.0, 1.0))
+    return torch.stack([yaw, pitch], dim=-1)

@@ -1,0 +1,114 @@
+"""Weights across packages: the JAX variables tree -> the port's state dict.
+
+`jax_variables_to_state_dict` is the exact inverse of
+mcgaze_tpu/utils/torch_convert.py::convert_mcgaze_checkpoint_dict. It takes
+the JAX `{'params', 'stats'}` tree as nested dicts of numpy arrays and
+returns the reference mmdet names the port's modules use:
+  * flax Conv kernel (H, W, I, O)  -> Conv weight (O, I, H, W)
+  * flax Dense kernel (in, out)    -> Linear weight (out, in)
+  * attention/qkv                  -> attention.attn.in_proj_{weight,bias}
+  * FrozenBatchNorm scale/bias + stats mean/var
+                                   -> weight/bias/running_mean/running_var
+`clean_reference_state_dict` prepares a reference .pth's state dict for
+`load_state_dict(strict=True)`.
+"""
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+# module-path rewrites, JAX tree path (with '/') -> reference name, in order
+_RULES = (
+    (r'^bbox_head_(\d+)/', r'roi_head.bbox_head.\1/'),
+    (r'^gaze_head_(\d+)/', r'roi_head.gaze_head.\1/'),
+    (r'^init_proposal_(bboxes|features)$', r'rpn_head.init_proposal_\1'),
+    (r'/layer(\d)_(\d+)/', r'/layer\1/\2/'),
+    (r'/downsample_conv$', r'/downsample/0'),
+    (r'/downsample_bn$', r'/downsample/1'),
+    (r'^neck/lateral_(\d)$', r'neck/lateral_convs/\1/conv'),
+    (r'^neck/fpn_(\d)$', r'neck/fpn_convs/\1/conv'),
+    (r'/attention/out$', r'/attention/attn/out_proj'),
+    (r'/iic_norm$', r'/instance_interactive_conv_norm'),
+    (r'/ffn_fc1$', r'/ffn/layers/0/0'),
+    (r'/ffn_fc2$', r'/ffn/layers/1'),
+    (r'/cls_tower/', r'/cls_fcs/'),
+    (r'/reg_tower/', r'/reg_fcs/'),
+)
+# tower layers: fc{i} -> {3i}, ln{i} -> {3i+1}
+_TOWER = re.compile(r'/(cls_fcs|reg_fcs|gaze_\w+_fcs|gaze_\w+_confidence)'
+                    r'/(fc|ln)(\d+)$')
+
+
+def _flatten(tree, prefix=''):
+    for k, v in tree.items():
+        path = f'{prefix}/{k}' if prefix else k
+        if isinstance(v, dict):
+            yield from _flatten(v, path)
+        else:
+            yield path, np.asarray(v)
+
+
+def _module_name(path: str) -> str:
+    for pat, rep in _RULES:
+        path = re.sub(pat, rep, path)
+    m = _TOWER.search(path)
+    if m:
+        idx = 3 * int(m.group(3)) + (m.group(2) == 'ln')
+        path = path[:m.start()] + f'/{m.group(1)}/{idx}'
+    return path.replace('/', '.')
+
+
+def jax_variables_to_state_dict(variables: dict) -> dict:
+    """JAX MCGazeModel variables (numpy leaves) -> {name: torch.Tensor}
+    under the reference names, loadable into the port's MCGazeModel with
+    strict=True."""
+    sd = {}
+    for path, v in _flatten(variables['params']):
+        if path.startswith('init_proposal_'):
+            sd[_module_name(path) + '.weight'] = v
+            continue
+        module, leaf = path.rsplit('/', 1)
+        if module.endswith('/attention/qkv'):
+            name = _module_name(module[:-len('/qkv')]) + '.attn.in_proj_'
+            sd[name + ('weight' if leaf == 'kernel' else 'bias')] = \
+                v.T if leaf == 'kernel' else v
+            continue
+        name = _module_name(module)
+        if leaf == 'kernel':
+            sd[name + '.weight'] = (np.transpose(v, (3, 2, 0, 1))
+                                    if v.ndim == 4 else v.T)
+        elif leaf == 'scale':
+            sd[name + '.weight'] = v
+        elif leaf == 'bias':
+            sd[name + '.bias'] = v
+        else:
+            raise KeyError(f'unexpected JAX param leaf {path}')
+    for path, v in _flatten(variables.get('stats', {})):
+        module, leaf = path.rsplit('/', 1)
+        stat = {'mean': 'running_mean', 'var': 'running_var'}[leaf]
+        sd[f'{_module_name(module)}.{stat}'] = v
+    return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
+            for k, v in sd.items()}
+
+
+def _benign(key: str) -> bool:
+    """Reference keys the port has no slot for, by design: BN bookkeeping
+    and BBoxHead's dead default heads (the same set torch_convert.py
+    tolerates)."""
+    return (key.endswith('num_batches_tracked')
+            or (key.startswith('roi_head.bbox_head.')
+                and ('.fc_cls.' in key or '.fc_reg.' in key)))
+
+
+def clean_reference_state_dict(sd: dict) -> dict:
+    """A reference checkpoint's state dict ('state_dict' entry already
+    taken) -> tensors the port loads with strict=True: strips a 'module.'
+    prefix and drops only the benign keys."""
+    out = {}
+    for k, v in sd.items():
+        k = k[len('module.'):] if k.startswith('module.') else k
+        if not _benign(k):
+            out[k] = torch.as_tensor(v)
+    return out
