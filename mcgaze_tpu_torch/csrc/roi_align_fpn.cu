@@ -34,136 +34,14 @@
 // four corner loads of a sample are coalesced along C of the NHWC pyramid,
 // and threadIdx.y is the bin column. There is no one-hot matmul, no VMEM
 // sizing, no RoI chunking and no level sort: those were TPU workarounds.
+// The level rule and the row geometry live in roi_align_common.cuh, which
+// the backward (roi_align_fpn_bwd.cu) includes as well.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "roi_align_common.cuh"
 
 namespace {
 
-constexpr int kMaxLevels = 4;
-constexpr int kMaxOut = 16;
-constexpr int kMaxSampling = 4;
-
-struct Pyramid {
-  const void* ptr[kMaxLevels];
-  int h[kMaxLevels];
-  int w[kMaxLevels];
-  float stride[kMaxLevels];
-  int num_levels;
-  int num_frames;
-};
-
-struct Axis {
-  int lo;
-  int hi;
-  float w_lo;  // weight of the lo corner, 0 for an invalid sample
-  float w_hi;
-};
-
-// One axis of one sample: mmcv RoIAlign(aligned=True) bilinear corner rule
-// (ops/roi_align.py::roi_align_fpn, corners()). Explicitly rounded
-// arithmetic keeps nvcc from contracting the position into an fma, so the
-// coordinates round as they do in the plain PyTorch version.
-__device__ __forceinline__ Axis axis_sample(float start, float bin, int idx,
-                                            int k, int sampling, int size) {
-  const float pos = __fadd_rn(static_cast<float>(idx),
-                              __fdiv_rn(__fadd_rn(static_cast<float>(k), 0.5f),
-                                        static_cast<float>(sampling)));
-  const float v = __fadd_rn(start, __fmul_rn(pos, bin));
-  Axis a;
-  if (!(v >= -1.0f && v <= static_cast<float>(size))) {
-    a.lo = 0;
-    a.hi = 0;
-    a.w_lo = 0.0f;
-    a.w_hi = 0.0f;
-    return a;
-  }
-  const float vc = fmaxf(v, 0.0f);
-  float lo = floorf(vc);
-  const float max_lo = static_cast<float>(size - 1);
-  const bool degenerate = lo >= max_lo;
-  lo = fminf(lo, max_lo);
-  const float hi = fminf(lo + 1.0f, max_lo);
-  const float frac = degenerate ? 0.0f : vc - lo;
-  a.lo = static_cast<int>(lo);
-  a.hi = static_cast<int>(hi);
-  a.w_lo = 1.0f - frac;
-  a.w_hi = frac;
-  return a;
-}
-
-// roi_levels (ops/roi_align.py): the signed area is clipped at 0, so a box
-// inverted on both axes routes by its positive area.
-__device__ __forceinline__ int roi_level(float x1, float y1, float x2,
-                                         float y2, int num_levels,
-                                         float finest_scale) {
-  const float area = fmaxf(__fmul_rn(x2 - x1, y2 - y1), 0.0f);
-  const float v = __fadd_rn(__fdiv_rn(sqrtf(area), finest_scale), 1e-6f);
-  int lvl = 0;
-  float thresh = 2.0f;
-  for (int l = 1; l < num_levels; ++l) {
-    lvl += (v >= thresh) ? 1 : 0;
-    thresh *= 2.0f;
-  }
-  return lvl;
-}
-
-template <typename T, int VEC>
-struct Vec;
-
-template <>
-struct Vec<float, 1> {
-  __device__ static void load(const float* p, float* out) { out[0] = *p; }
-  __device__ static void store(float* p, const float* in) { *p = in[0]; }
-};
-
-template <>
-struct Vec<float, 4> {
-  __device__ static void load(const float* p, float* out) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x;
-    out[1] = v.y;
-    out[2] = v.z;
-    out[3] = v.w;
-  }
-  __device__ static void store(float* p, const float* in) {
-    *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
-  }
-};
-
-template <>
-struct Vec<__nv_bfloat16, 1> {
-  __device__ static void load(const __nv_bfloat16* p, float* out) {
-    out[0] = __bfloat162float(*p);
-  }
-  __device__ static void store(__nv_bfloat16* p, const float* in) {
-    *p = __float2bfloat16_rn(in[0]);
-  }
-};
-
-template <>
-struct Vec<__nv_bfloat16, 8> {
-  __device__ static void load(const __nv_bfloat16* p, float* out) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float2 f = __bfloat1622float2(h[k]);
-      out[2 * k] = f.x;
-      out[2 * k + 1] = f.y;
-    }
-  }
-  __device__ static void store(__nv_bfloat16* p, const float* in) {
-    uint4 raw;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      h[k] = __floats2bfloat162_rn(in[2 * k], in[2 * k + 1]);
-    }
-    *reinterpret_cast<uint4*>(p) = raw;
-  }
-};
+using Pyramid = PyramidT<const void*>;
 
 template <typename T, int VEC>
 __global__ void roi_align_fpn_kernel(Pyramid pyr,
@@ -178,35 +56,12 @@ __global__ void roi_align_fpn_kernel(Pyramid pyr,
   const int i = blockIdx.x % out_size;    // bin row
   const int nr = blockIdx.x / out_size;   // slot * R + RoI
   const int n = nr / num_rois;
-
-  const float x1 = rois[4 * nr + 0];
-  const float y1 = rois[4 * nr + 1];
-  const float x2 = rois[4 * nr + 2];
-  const float y2 = rois[4 * nr + 3];
-  const int lvl = roi_level(x1, y1, x2, y2, pyr.num_levels, finest_scale);
+  const int frame = frame_idx ? frame_idx[n] : n;
+  // level and bin geometry of this row, once per block
+  const int lvl = row_geometry(pyr, rois + 4 * nr, i, finest_scale, out_size,
+                               sampling, ys, xs);
   const int h = pyr.h[lvl];
   const int w = pyr.w[lvl];
-  const float stride = pyr.stride[lvl];
-  const int frame = frame_idx ? frame_idx[n] : n;
-
-  // bin geometry of this row, once per block
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthreads = blockDim.x * blockDim.y;
-  const int nx = out_size * sampling;
-  for (int k = tid; k < sampling + nx; k += nthreads) {
-    if (k < sampling) {
-      const float ys0 = __fadd_rn(__fdiv_rn(y1, stride), -0.5f);
-      const float ye0 = __fadd_rn(__fdiv_rn(y2, stride), -0.5f);
-      const float bin = __fdiv_rn(ye0 - ys0, static_cast<float>(out_size));
-      ys[k] = axis_sample(ys0, bin, i, k, sampling, h);
-    } else {
-      const int q = k - sampling;  // j * sampling + sx
-      const float xs0 = __fadd_rn(__fdiv_rn(x1, stride), -0.5f);
-      const float xe0 = __fadd_rn(__fdiv_rn(x2, stride), -0.5f);
-      const float bin = __fdiv_rn(xe0 - xs0, static_cast<float>(out_size));
-      xs[q] = axis_sample(xs0, bin, q / sampling, q % sampling, sampling, w);
-    }
-  }
   __syncthreads();
 
   const int j = threadIdx.y;
@@ -265,9 +120,7 @@ template <typename T, int VEC>
 cudaError_t launch(const Pyramid& pyr, const float* rois, const int* frame_idx,
                    void* out, int n, int r, int c, float finest_scale,
                    int out_size, int sampling, cudaStream_t stream) {
-  const int nvec = c / VEC;
-  const int bx = nvec < 64 ? nvec : 64;
-  const dim3 block(bx, out_size);
+  const dim3 block = row_block(c, VEC, out_size);
   const dim3 grid(n * r * out_size);
   roi_align_fpn_kernel<T, VEC><<<grid, block, 0, stream>>>(
       pyr, rois, frame_idx, static_cast<T*>(out), r, c, finest_scale,
@@ -291,24 +144,13 @@ int mcg_roi_align_fpn_fwd(const void* f0, const void* f1, const void* f2,
                           int n, int r, int c, int dtype, int vec,
                           float finest_scale, int out_size, int sampling,
                           void* stream) {
-  if (num_levels < 1 || num_levels > kMaxLevels || out_size < 1 ||
-      out_size > kMaxOut || sampling < 1 || sampling > kMaxSampling) {
+  if (!valid_config(num_levels, out_size, sampling)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0 || r == 0) return 0;
-  Pyramid pyr;
-  const void* ptrs[kMaxLevels] = {f0, f1, f2, f3};
-  const int hs[kMaxLevels] = {h0, h1, h2, h3};
-  const int ws[kMaxLevels] = {w0, w1, w2, w3};
-  const float ss[kMaxLevels] = {s0, s1, s2, s3};
-  for (int l = 0; l < kMaxLevels; ++l) {
-    pyr.ptr[l] = ptrs[l];
-    pyr.h[l] = hs[l];
-    pyr.w[l] = ws[l];
-    pyr.stride[l] = ss[l];
-  }
-  pyr.num_levels = num_levels;
-  pyr.num_frames = num_frames;
+  const Pyramid pyr = make_pyramid<const void*>(
+      f0, f1, f2, f3, h0, w0, h1, w1, h2, w2, h3, w3, s0, s1, s2, s3,
+      num_levels, num_frames);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0 && vec == 4) {
@@ -325,10 +167,6 @@ int mcg_roi_align_fpn_fwd(const void* f0, const void* f1, const void* f2,
                                    finest_scale, out_size, sampling, st);
   }
   return static_cast<int>(err);
-}
-
-const char* mcg_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

@@ -1,7 +1,9 @@
 """Background-thread prefetcher, counterpart of
-mcgaze_tpu/data/prefetch.py::BatchPrefetcher: one thread runs a producer
-iterator (decode, then the host->device copy) a few items ahead of the
-consumer. An exception in the producer is raised to the consumer.
+mcgaze_tpu/data/prefetch.py: `BatchPrefetcher` runs a producer iterator
+(decode, then the host->device copy) a few items ahead of the consumer in
+one thread; an exception in the producer is raised to the consumer.
+`device_put_batches` (the train loop's entry) copies each host batch
+through pinned memory to the device, one batch ahead of the step.
 """
 from __future__ import annotations
 
@@ -11,6 +13,9 @@ import threading
 import time
 import weakref
 from typing import Iterator, Optional
+
+import numpy as np
+import torch
 
 
 class BatchPrefetcher:
@@ -86,3 +91,53 @@ class BatchPrefetcher:
             pass
         self._thread.join(timeout=timeout)
         atexit.unregister(self._atexit)
+
+
+class DeviceBatches:
+    """Iterator of device batches from a BatchPrefetcher whose producer
+    copies on a side CUDA stream: each batch's copy is waited for on the
+    consumer's current stream before the batch is handed over."""
+
+    def __init__(self, prefetcher: BatchPrefetcher, device: torch.device):
+        self._pf = prefetcher
+        self._device = device
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        batch, done = next(self._pf)
+        if done is not None:
+            stream = torch.cuda.current_stream(self._device)
+            stream.wait_event(done)
+            for v in batch.values():
+                v.record_stream(stream)
+        return batch
+
+    def close(self, timeout: float = 5.0):
+        self._pf.close(timeout)
+
+
+def device_put_batches(batches: Iterator[dict], device) -> DeviceBatches:
+    """Host numpy batches -> dicts of tensors on `device`, produced one
+    batch ahead by a background thread. On a CUDA device each
+    array goes through pinned memory and is copied without blocking, on a
+    stream of its own, so the copy overlaps the step in flight."""
+    device = torch.device(device)
+    copy_stream = (torch.cuda.Stream(device) if device.type == 'cuda'
+                   else None)
+
+    def put(batch):
+        host = {k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in batch.items()}
+        if copy_stream is None:
+            return {k: v.to(device) for k, v in host.items()}, None
+        with torch.cuda.stream(copy_stream):
+            out = {k: v.pin_memory().to(device, non_blocking=True)
+                   for k, v in host.items()}
+            done = torch.cuda.Event()
+            done.record(copy_stream)
+        return out, done
+
+    return DeviceBatches(BatchPrefetcher(map(put, batches), prefetch=1),
+                         device)

@@ -2,7 +2,8 @@
 
 PyTorch counterpart of mcgaze_tpu/geometry.py (same formulas, same
 constants): the box converters, the DeltaXYWH decoder with
-clip_border=False, and the yaw/pitch <-> unit-vector maps. Every function
+clip_border=False and its encoder, aligned GIoU, and the yaw/pitch <->
+unit-vector maps. Every function
 works over any leading dims and a trailing coordinate dim.
 """
 from __future__ import annotations
@@ -24,6 +25,13 @@ def bbox_cxcywh_to_xyxy(boxes: torch.Tensor) -> torch.Tensor:
     cx, cy, w, h = boxes.unbind(-1)
     return torch.stack([cx - w * 0.5, cy - h * 0.5,
                         cx + w * 0.5, cy + h * 0.5], dim=-1)
+
+
+def bbox_xyxy_to_cxcywh(boxes: torch.Tensor) -> torch.Tensor:
+    """(..., 4) [x1, y1, x2, y2] -> [cx, cy, w, h]."""
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    return torch.stack([(x1 + x2) * 0.5, (y1 + y2) * 0.5,
+                        x2 - x1, y2 - y1], dim=-1)
 
 
 def delta2bbox(rois: torch.Tensor, deltas: torch.Tensor,
@@ -51,6 +59,47 @@ def delta2bbox(rois: torch.Tensor, deltas: torch.Tensor,
     gh = ph * torch.exp(dh)
     return torch.stack([gx - gw * 0.5, gy - gh * 0.5,
                         gx + gw * 0.5, gy + gh * 0.5], dim=-1)
+
+
+def bbox2delta(proposals: torch.Tensor, gt: torch.Tensor,
+               means=DELTA_MEANS, stds=DELTA_STDS) -> torch.Tensor:
+    """Inverse of delta2bbox: (..., 4) xyxy proposals and targets ->
+    normalised (dx, dy, dw, dh)."""
+    px = (proposals[..., 0] + proposals[..., 2]) * 0.5
+    py = (proposals[..., 1] + proposals[..., 3]) * 0.5
+    pw = proposals[..., 2] - proposals[..., 0]
+    ph = proposals[..., 3] - proposals[..., 1]
+    gx = (gt[..., 0] + gt[..., 2]) * 0.5
+    gy = (gt[..., 1] + gt[..., 3]) * 0.5
+    gw = gt[..., 2] - gt[..., 0]
+    gh = gt[..., 3] - gt[..., 1]
+    deltas = torch.stack([(gx - px) / pw, (gy - py) / ph,
+                          torch.log(gw / pw), torch.log(gh / ph)], dim=-1)
+    means = torch.as_tensor(means, dtype=deltas.dtype, device=deltas.device)
+    stds = torch.as_tensor(stds, dtype=deltas.dtype, device=deltas.device)
+    return (deltas - means) / stds
+
+
+def giou(pred: torch.Tensor, target: torch.Tensor,
+         eps: float = 1e-7) -> torch.Tensor:
+    """Aligned generalised IoU of (..., 4) xyxy boxes -> (...,), as mmdet
+    bbox_overlaps(mode='giou', is_aligned=True)."""
+    lt = torch.maximum(pred[..., :2], target[..., :2])
+    rb = torch.minimum(pred[..., 2:], target[..., 2:])
+    wh = (rb - lt).clamp_min(0.0)
+    overlap = wh[..., 0] * wh[..., 1]
+
+    area_p = (pred[..., 2] - pred[..., 0]) * (pred[..., 3] - pred[..., 1])
+    area_t = ((target[..., 2] - target[..., 0]) *
+              (target[..., 3] - target[..., 1]))
+    union = (area_p + area_t - overlap).clamp_min(eps)
+    ious = overlap / union
+
+    enc_lt = torch.minimum(pred[..., :2], target[..., :2])
+    enc_rb = torch.maximum(pred[..., 2:], target[..., 2:])
+    enc_wh = (enc_rb - enc_lt).clamp_min(0.0)
+    enc_area = (enc_wh[..., 0] * enc_wh[..., 1]).clamp_min(eps)
+    return ious - (enc_area - union) / enc_area
 
 
 def yaw_pitch_to_vector(x: torch.Tensor) -> torch.Tensor:

@@ -31,9 +31,8 @@ DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The JAX ModelConfig's model fields, with the same defaults (the
-    full-width gaze360 R50 model). Its loss fields come with the training
-    slice."""
+    """The JAX ModelConfig's fields, with the same defaults (the
+    full-width gaze360 R50 model and its losses)."""
     backbone_depth: int = 50
     num_stages: int = 4
     clip_length: int = 7
@@ -57,6 +56,18 @@ class ModelConfig:
     # everywhere (the kernel's reference)
     roi_impl: str = 'auto'
     backbone_impl: str = 'plain'
+    # loss weights (configs/multiclue_gaze/multiclue_gaze_r50_gaze360.py)
+    loss_cls_weight: float = 2.0
+    loss_bbox_weight: float = 5.0
+    loss_iou_weight: float = 2.0
+    loss_gaze_weight: float = 6.0
+    loss_temp_weight: float = 1.0
+    # per-clue gaze loss: 'arccos' (shipped configs) | 'cos' | 'pinball'
+    # (ops/losses.py::GAZE_LOSSES)
+    gaze_loss_type: str = 'arccos'
+    focal_gamma: float = 2.0
+    focal_alpha: float = 0.25
+    stage_loss_weights: Tuple[float, ...] = (1.0, 1.0, 1.0, 1.0)
 
     @property
     def torch_dtype(self) -> torch.dtype:

@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels of mcgaze_tpu_torch/csrc.
 
-Each `csrc/<name>.cu` has a plain C interface. It is compiled with nvcc
+Each `csrc/<name>.cu` has a plain C interface and may include the shared
+headers `csrc/*.cuh`. It is compiled with nvcc
 for sm_90a into `mcgaze_tpu_torch/_build/lib<name>-<source hash>.so` at
 first use (or by `build_all`, which starts one nvcc per source at once)
 and loaded with ctypes. Nothing is built or loaded at import time.
@@ -18,7 +19,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG / '_build'
-SOURCES = ('roi_align_fpn',)
+SOURCES = ('roi_align_fpn', 'roi_align_fpn_bwd')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -41,9 +42,13 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f'{name}.cu'
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f'lib{name}-{digest}.so'
+    """The library's path, named by a hash of its source and of every
+    header in csrc/, so a change to a shared header rebuilds every
+    library."""
+    h = hashlib.sha256((CSRC / f'{name}.cu').read_bytes())
+    for header in sorted(CSRC.glob('*.cuh')):
+        h.update(header.name.encode() + header.read_bytes())
+    return BUILD_DIR / f'lib{name}-{h.hexdigest()[:16]}.so'
 
 
 def _start(name: str):

@@ -1,0 +1,55 @@
+"""Checkpoint files, counterpart of mcgaze_tpu/utils/checkpoint.py, as
+torch.save files:
+
+  ckpt_<step>.pth        {'state_dict': the model under the reference mmdet
+                          names, 'meta': {'step'}}: what eval loads, in the
+                          layout of an mmcv checkpoint, so
+                          clean_reference_state_dict reads it
+  ckpt_<step>_train.pth  what resume needs beside it: the optimizer state,
+                          the step and the EMA copy (or None)
+"""
+from __future__ import annotations
+
+import os
+import os.path as osp
+import re
+from typing import Any
+
+import torch
+
+_CKPT = re.compile(r'ckpt_(\d+)\.pth')
+
+
+def save_checkpoint(work_dir: str, step: int, state_dict: dict,
+                    train_state: Any = None) -> str:
+    """Write ckpt_<step>.pth and, with train_state, ckpt_<step>_train.pth.
+    Returns the model file's path."""
+    path = osp.abspath(osp.join(work_dir, f'ckpt_{step}.pth'))
+    cpu = {k: v.detach().cpu() for k, v in state_dict.items()}
+    torch.save({'state_dict': cpu, 'meta': {'step': step}}, path)
+    if train_state is not None:
+        torch.save(train_state, train_path(path))
+    return path
+
+
+def train_path(path: str) -> str:
+    """ckpt_<step>.pth -> ckpt_<step>_train.pth."""
+    return path[:-len('.pth')] + '_train.pth'
+
+
+def restore_checkpoint(path: str) -> Any:
+    """What save_checkpoint wrote at `path` (tensors, numbers, dicts), on
+    the CPU."""
+    return torch.load(path, map_location='cpu', weights_only=True)
+
+
+def find_latest_checkpoint(work_dir: str) -> str | None:
+    """The model file of the highest step in work_dir, for auto-resume."""
+    if not osp.isdir(work_dir):
+        return None
+    best, best_step = None, -1
+    for name in os.listdir(work_dir):
+        m = _CKPT.fullmatch(name)
+        if m and int(m.group(1)) > best_step:
+            best, best_step = osp.join(work_dir, name), int(m.group(1))
+    return best

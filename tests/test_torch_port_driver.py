@@ -23,7 +23,7 @@ from mcgaze_tpu_torch.evaluation.forward import bind_forward, \
 from mcgaze_tpu_torch.evaluation.mae import evaluate_results, gaze_error
 from mcgaze_tpu_torch.models.mcgaze import MCGazeModel, ModelConfig
 from mcgaze_tpu_torch.utils.convert import jax_variables_to_state_dict
-from tests.test_torch_port_model import JSMALL, SMALL, random_variables, \
+from tests.test_torch_port_model import SMALL, random_variables, \
     to_numpy_tree
 
 W, H, CANVAS = 64, 48, (32, 32)
@@ -38,7 +38,7 @@ def frames_of(seed, n=18):
 @pytest.fixture(scope='module')
 def forwards():
     """(JAX forward_fn, port forward_fn) over the same weights."""
-    _m, init, fwd, fwd_dedup = jmake(JModelConfig(**JSMALL), canvas=CANVAS)
+    _m, init, fwd, fwd_dedup = jmake(JModelConfig(**SMALL), canvas=CANVAS)
     variables = random_variables(to_numpy_tree(init), seed=21)
     port = MCGazeModel(ModelConfig(**SMALL))
     port.load_state_dict(jax_variables_to_state_dict(variables), strict=True)

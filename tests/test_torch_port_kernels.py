@@ -9,7 +9,10 @@ only PyTorch; there tests/conftest.py (which imports JAX) is skipped:
 Tolerances: f32 1e-5 of the largest feature (each side rounds up to ~16
 partial sums bounded by it, in another order); bf16 2e-2 of the output's
 scale (the plain version rounds its weights and its intermediate to bf16,
-the kernel only its output).
+the kernel only its output). The backward kernel (K3) is held against the
+plain version's autograd gradient at the same tolerances, scaled by the
+largest |gradient| in f32: its f32 atomics add a cell's terms in an order
+that changes from run to run.
 """
 import numpy as np
 import pytest
@@ -102,6 +105,56 @@ def test_roi_align_kernel_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match='non-contiguous'):
         roi_align_cuda.roi_align_fpn(
             tuple(f.transpose(1, 2) for f in feats), rois, fidx)
-    with pytest.raises(NotImplementedError, match='training slice'):
-        roi_align_cuda.roi_align_fpn(
+    # a grad path outside the autograd Function is refused
+    with pytest.raises(RuntimeError, match='autograd Function'):
+        roi_align_cuda.launch_roi_align_fpn(
             tuple(f.requires_grad_() for f in feats), rois, fidx)
+
+
+def _grads(feats, rois, fidx, g, fn):
+    leaves = tuple(f.detach().clone().requires_grad_() for f in feats)
+    fn(leaves, rois, fidx).backward(g)
+    return [x.grad for x in leaves]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('with_frame_idx', [False, True])
+def test_roi_align_bwd_kernel_matches_plain_autograd(cuda_device, dtype,
+                                                     with_frame_idx):
+    """roi_align_fpn on CUDA tensors: K1 forward, K3 backward, once each;
+    the feature gradient equals the plain version's autograd gradient."""
+    feats, rois, fidx = _case(cuda_device, dtype, with_frame_idx)
+    n, r = rois.shape[:2]
+    g = torch.randn(n, r, 7, 7, feats[0].shape[-1], generator=torch.Generator(
+        device=cuda_device).manual_seed(0), device=cuda_device).to(dtype)
+    fwd, bwd = roi_align_cuda.launch_count, roi_align_cuda.bwd_launch_count
+    got = _grads(feats, rois, fidx, g, roi_align_cuda.roi_align_fpn)
+    torch.cuda.synchronize()
+    assert roi_align_cuda.launch_count == fwd + 1
+    assert roi_align_cuda.bwd_launch_count == bwd + 1
+    ref = _grads(feats, rois, fidx, g, roi_align_fpn_mm)
+    for a, b in zip(got, ref):
+        assert a.dtype == dtype and a.shape == b.shape
+        err = (a.float() - b.float()).abs().max().item()
+        scale = max(b.float().abs().max().item() for b in ref)
+        tol = (TOL_F32 if dtype == torch.float32 else TOL_BF16) * scale
+        assert err <= tol, (err, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('with_frame_idx', [False, True])
+def test_roi_align_bwd_kernel_is_the_adjoint(cuda_device, with_frame_idx):
+    """<K1(F), G> = sum_l <F_l, K3(G)_l>, summed in f64, f32 kernels: the
+    backward is the forward's transpose without any plain version."""
+    feats, rois, fidx = _case(cuda_device, torch.float32, with_frame_idx)
+    n, r = rois.shape[:2]
+    g = torch.randn(n, r, 7, 7, feats[0].shape[-1], device=cuda_device)
+    out = roi_align_cuda.launch_roi_align_fpn(feats, rois, fidx)
+    grads = roi_align_cuda.launch_roi_align_fpn_bwd(
+        g, rois, fidx, [f.shape for f in feats])
+    lhs = (out.double() * g.double()).sum().item()
+    rhs = sum((f.double() * d.double()).sum().item()
+              for f, d in zip(feats, grads))
+    scale = out.double().norm().item() * g.double().norm().item()
+    assert abs(lhs - rhs) <= 1e-5 * scale, (lhs, rhs, scale)

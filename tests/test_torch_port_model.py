@@ -27,8 +27,8 @@ from mcgaze_tpu_torch.utils.convert import (clean_reference_state_dict,
                                             jax_variables_to_state_dict)
 from tests.test_torch_convert import reference_state_dict
 
-SMALL = dict(backbone_depth=26, num_stages=2, ffn_channels=256)
-JSMALL = dict(SMALL, stage_loss_weights=(1.0, 1.0))     # JAX-only field
+SMALL = dict(backbone_depth=26, num_stages=2, ffn_channels=256,
+             stage_loss_weights=(1.0, 1.0))
 T, IMG = 7, 64
 
 
@@ -68,7 +68,7 @@ def to_numpy_tree(tree):
 def small_pair():
     """(JAX model, JAX variables (numpy), port model on the CPU) holding
     the same weights."""
-    jmodel, init = jinit_model(JModelConfig(**JSMALL), jax.random.PRNGKey(0),
+    jmodel, init = jinit_model(JModelConfig(**SMALL), jax.random.PRNGKey(0),
                                image_size=(IMG, IMG))
     variables = random_variables(to_numpy_tree(init), seed=11)
     port = MCGazeModel(ModelConfig(**SMALL))

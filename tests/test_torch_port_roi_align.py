@@ -123,3 +123,73 @@ def test_cuda_path_raises_instead_of_falling_back():
         roi_align_cuda.launch_roi_align_fpn(feats, rois)
     with pytest.raises(ValueError, match='several devices'):
         roi_align_cuda.roi_align_fpn(feats, rois.to('meta'))
+
+
+def _plain_grad(feats, rois, g, frame_idx=None):
+    """The plain version's feature gradient: autograd through
+    roi_align_fpn (CPU tensors take the plain version)."""
+    t = tuple(torch.from_numpy(f).requires_grad_() for f in feats)
+    fi = None if frame_idx is None else torch.from_numpy(frame_idx)
+    out = roi_align_cuda.roi_align_fpn(t, torch.from_numpy(rois), fi)
+    out.backward(torch.from_numpy(g))
+    return [x.grad.numpy() for x in t]
+
+
+@pytest.mark.parametrize('nq', [3, 20])
+def test_plain_gradient_matches_jax_vjp_and_pallas_bwd(nq):
+    """The backward kernel's reference (autograd of the plain version)
+    against the JAX mm-formulation vjp and the TPU backward kernel in
+    interpret mode, as tests/test_roi_align.py runs it: 3 RoIs (the gaze
+    path) and 20 (RoI chunks with level sort in the Pallas kernel)."""
+    import jax
+    from mcgaze_tpu.ops.roi_align_pallas import roi_align_fpn_pallas_bwd
+    rng = np.random.RandomState(7)
+    feats = make_pyramid(rng, 2, 8)
+    rois = mixed_rois(rng, 2, tuple(rng.choice([25, 90, 300], nq)))
+    g = rng.randn(2, nq, 7, 7, 8).astype(np.float32)
+    got = _plain_grad(feats, rois, g)
+    jf = tuple(map(jnp.asarray, feats))
+    _, vjp = jax.vjp(lambda f: jra.roi_align_fpn_mm(f, jnp.asarray(rois)),
+                     jf)
+    ref_mm = vjp(jnp.asarray(g))[0]
+    ref_pallas = roi_align_fpn_pallas_bwd(jf, jnp.asarray(rois),
+                                          jnp.asarray(g), interpret=True)
+    for lvl, (a, b, c) in enumerate(zip(got, ref_mm, ref_pallas)):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=TOL_F32,
+                                   atol=TOL_F32, err_msg=f'level {lvl} mm')
+        np.testing.assert_allclose(a, np.asarray(c), rtol=TOL_F32,
+                                   atol=TOL_F32,
+                                   err_msg=f'level {lvl} pallas')
+    assert any(np.abs(a).max() > 0.1 for a in got)
+
+
+def test_plain_gradient_frame_idx_matches_jax_gather_vjp():
+    """frame_idx form: slots scatter into their frames, as the JAX
+    _gdiff_bwd (the mm transpose of gather . roi_align) does."""
+    import jax
+    rng = np.random.RandomState(8)
+    feats = make_pyramid(rng, 3, 8)
+    fidx = np.array([0, 0, 1, 2, 2, 1, 0], np.int32)
+    rois = mixed_rois(rng, len(fidx))
+    g = rng.randn(len(fidx), 3, 7, 7, 8).astype(np.float32)
+    got = _plain_grad(feats, rois, g, fidx)
+    _, vjp = jax.vjp(lambda f: jra.roi_align_fpn_mm(
+        tuple(x[fidx] for x in f), jnp.asarray(rois)),
+        tuple(map(jnp.asarray, feats)))
+    for a, b in zip(got, vjp(jnp.asarray(g))[0]):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=TOL_F32,
+                                   atol=TOL_F32)
+
+
+def test_backward_launch_raises_on_cpu_tensors():
+    """The backward kernel's wrapper takes CUDA tensors only and never
+    computes on the CPU; nothing is counted."""
+    rng = np.random.RandomState(9)
+    feats = make_pyramid(rng, 2, 8)
+    rois = torch.from_numpy(mixed_rois(rng, 2))
+    g = torch.zeros(2, 3, 7, 7, 8)
+    before = roi_align_cuda.bwd_launch_count
+    with pytest.raises(RuntimeError, match='CUDA device only'):
+        roi_align_cuda.launch_roi_align_fpn_bwd(
+            g, rois, None, [f.shape for f in feats])
+    assert roi_align_cuda.bwd_launch_count == before
