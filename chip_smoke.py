@@ -39,6 +39,32 @@ Phases, each printing one JSON line (any failure exits non-zero):
           clips/s and peak memory
   train_profile  torch.profiler over a train step: device time by kernel,
           idle share, K1 and K3 ms per step
+  kernel_k4  the fused STQI attention kernel (K4) against its plain
+          version at the eval shape (32 clips x 7 frames x 3 clues, C=256,
+          8 heads, f32) and at one clip: error and tolerance, kernel and
+          plain ms, the bound; permuting the other clips leaves clip 0 as
+          it was
+  kernel_k5  the fused bottleneck chain kernel (K5) against its plain
+          version for each ResNet-50 stage chain at the eval shape (131
+          frames at 224 px), bf16 and f32, on the full-width seeded model's
+          folded weights and the activations its plain backbone feeds each
+          chain: error and tolerance, kernel, plain and plain-Bottleneck
+          ms, the bound; and the autograd Function's gradients of x and of
+          every conv and BN parameter against autograd of the plain version
+  slice_fused  ModelConfig(backbone_impl='fused', fused_attention=True) at
+          full width through VideoGazeEvaluator.run_video, f32 and bf16,
+          with the K1, K3, K4 and K5 counters reset before and read after
+          (4 K1, 4 K4 and 40 K5 launches per forward, no K3); finite
+          results, unit gazes; one chunk in f32 with TF32 off against the
+          plain model on the same weights and fwd_dedup == fwd; then
+          fwd_dedup timed at 32 clips in bf16
+  profile_fused  torch.profiler over that forward: idle share, K4 and K5
+          ms per forward
+  train_fused  one train step at 2 clips with backbone_impl='fused', f32,
+          TF32 off, against the plain backbone: every log key; K5 launches
+          in the forwards, its backward recomputes the plain version; the
+          fused backbone's f32 gradients against the plain float64 ones,
+          within twice cuDNN's own f32 error plus TOL_E2E
 Then the `kernels` line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 
@@ -79,6 +105,11 @@ TOL_ADJ_BF16 = 1e-4
 # fwd_dedup against fwd: cuDNN picks other conv algorithms for 35 and 56
 # frames, so the pyramids differ in their last bits, which four stages grow
 TOL_E2E = 1e-3
+# K4 against its plain version, f32: absolute, as LN outputs are O(1)
+TOL_K4 = 2e-5
+# K5 against its plain version, f32: relative to max|plain| (K up to 2,304
+# summed in another order through up to 5 blocks); bf16 uses TOL_BF16_REL
+TOL_K5_F32_REL = 1e-4
 
 
 def emit(phase, **kw):
@@ -643,10 +674,12 @@ def phase_train_profile(step, step_ms):
               for ms, k, c in rows[:15]])
 
 
-def phase_profile(step, layers, timer):
+def phase_profile(step, layers, timer, phase='profile',
+                  kernels=(('roi_align', 'roi_align_fpn'),)):
     """Where the K=32 bf16 forward's time goes: host wall clock per
     forward, device time of the layers (CUDA events), and device time by
-    kernel from torch.profiler; idle share = 1 - kernel time / wall."""
+    kernel from torch.profiler; idle share = 1 - kernel time / wall.
+    `kernels`: (key, name substring) pairs reported as <key>_ms_per_forward."""
     walls = []
     for _ in range(6):
         torch.cuda.synchronize()
@@ -659,15 +692,442 @@ def phase_profile(step, layers, timer):
         layer_ms = {k: timer.ms(fn, reps=5) for k, fn in layers.items()}
     rows = profile_rows(step, 3)
     busy = sum(r[0] for r in rows)
-    roi = sum(r[0] for r in rows if 'roi_align_fpn' in r[1])
-    emit('profile', wall_ms_per_forward=wall_ms, layer_ms=layer_ms,
+    per_kernel = {f'{key}_ms_per_forward':
+                  sum(r[0] for r in rows if sub in r[1]) if rows
+                  else 'not measured' for key, sub in kernels}
+    emit(phase, wall_ms_per_forward=wall_ms, layer_ms=layer_ms,
          kernel_ms_per_forward=busy if rows else 'not measured',
-         roi_align_ms_per_forward=roi if rows else 'not measured',
-         kernels_per_forward=sum(r[2] for r in rows),
+         **per_kernel, kernels_per_forward=sum(r[2] for r in rows),
          idle_share=(1 - busy / wall_ms) if rows else 'not measured',
          top=[dict(ms=round(ms, 4), calls=c, name=k[:80])
               for ms, k, c in rows[:12]])
 
+
+# ------------------------------------------------------------- K4 and K5
+
+def phase_kernel_k4(device, timer):
+    """K4 against stqi_attention_reference on the card, f32: the eval shape
+    (32 clips) and one clip; clip 0 unchanged when the others move."""
+    from mcgaze_tpu_torch.ops import stqi_attention
+    from mcgaze_tpu_torch.tools.kernel_bounds import k4_bound
+
+    rng = np.random.RandomState(4)
+    t, q, c, heads = 7, 3, 256, 8
+
+    def arr(*shape, scale=1.0, shift=0.0):
+        return torch.from_numpy((shift + scale * rng.randn(*shape)).astype(
+            np.float32)).to(device)
+
+    weights = (arr(c, 3 * c, scale=c ** -0.5), arr(3 * c, scale=0.1),
+               arr(c, c, scale=c ** -0.5), arr(c, scale=0.1),
+               arr(c, scale=0.1, shift=1.0), arr(c, scale=0.1))
+    results = []
+    for clips in (32, 1):
+        query = arr(clips * t, q, c)
+        got = stqi_attention.launch_stqi_attention(query, *weights, t, heads)
+        torch.cuda.synchronize()
+        ref = stqi_attention.stqi_attention_reference(query, *weights, t,
+                                                      heads)
+        err = (got - ref).abs().max().item()
+        check(bool(torch.isfinite(got).all()), f'K4 non-finite, {clips} clips')
+        check(err <= TOL_K4, f'K4 disagrees with plain, {clips} clips: '
+              f'{err} > {TOL_K4}')
+        if clips > 1:
+            perm = torch.cat([query[:t], query[t:].flip(0)])
+            again = stqi_attention.launch_stqi_attention(perm, *weights, t,
+                                                         heads)
+            check(torch.equal(again[:t], got[:t]), 'K4: clip 0 moved with '
+                  'the other clips')
+        k_ms = timer.ms(lambda: stqi_attention.launch_stqi_attention(
+            query, *weights, t, heads))
+        p_ms = timer.ms(lambda: stqi_attention.stqi_attention_reference(
+            query, *weights, t, heads), reps=10)
+        b = k4_bound(clips, t, q, c)
+        results.append(dict(shape='gaze_eval' if clips == 32 else 'one_clip',
+                            dtype='float32', form=f'{clips} clips',
+                            clips=clips, max_abs_err=err, tol=TOL_K4,
+                            ms=k_ms, plain_ms=p_ms, bound_ms=b['bound_ms'],
+                            bound_by=b['bound_by'], bytes=b['bytes'],
+                            flops=b['flops'], library_ms=None))
+    emit('kernel_k4', cases=results)
+    return results
+
+
+def chain_feeds(backbone, imgs):
+    """The input of each stage's stride-1 chain and its blocks, fed
+    through the plain backbone: [(x NCHW channels_last, blocks)]."""
+    import torch.nn.functional as F
+    x = F.relu(backbone.bn1(backbone.conv1(imgs)))
+    x = F.max_pool2d(x, 3, stride=2, padding=1)
+    feeds = []
+    for stage in range(4):
+        layer = list(getattr(backbone, f'layer{stage + 1}'))
+        lead = [b for b in layer if b.conv2.stride != (1, 1)]
+        for b in lead:
+            x = b(x)
+        feeds.append((x, layer[len(lead):]))
+        for b in layer[len(lead):]:
+            x = b(x)
+    return feeds
+
+
+def phase_kernel_k5(device, timer, frames=131):
+    """K5 against chain_reference for each ResNet-50 stage chain at the
+    eval shape (131 frames at 224 px), bf16 and f32, on the full-width
+    seeded model's folded weights and the activations its plain backbone
+    feeds each chain; kernel, plain and plain-Bottleneck ms, the bound.
+    Then the autograd Function's gradients at a small shape."""
+    from mcgaze_tpu_torch.models.mcgaze import ModelConfig, init_model
+    from mcgaze_tpu_torch.ops import fused_bottleneck as fb
+    from mcgaze_tpu_torch.tools.kernel_bounds import chains, k5_bound
+
+    model = init_model(ModelConfig(backbone_impl='fused'), seed=0,
+                       device=device)
+    specs = chains(50, 224)
+    rng = np.random.RandomState(5)
+    imgs = torch.from_numpy(rng.randn(frames, 224, 224, 3).astype(
+        np.float32)).to(device).permute(0, 3, 1, 2)
+    torch.backends.cudnn.allow_tf32 = False
+    results = []
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace('torch.', '')
+        with torch.inference_mode():
+            feeds = chain_feeds(model.backbone, imgs.to(dtype))
+        for spec, (x, blocks) in zip(specs, feeds):
+            n, c, h, w = x.shape
+            with torch.inference_mode():
+                xin = x.permute(0, 2, 3, 1).reshape(n, h * w, c).contiguous()
+                weights = [a for b in blocks
+                           for a in fb.fold_block_params(b, dtype)]
+                got = fb.launch_fused_bottleneck_chain(xin, weights, h, w)
+                torch.cuda.synchronize()
+                ref = fb.chain_reference(xin, weights, h, w)
+            scale = ref.float().abs().max().item()
+            err = (got.float() - ref.float()).abs().max().item()
+            tol = (TOL_K5_F32_REL if dtype == torch.float32
+                   else TOL_BF16_REL) * scale
+            check(bool(torch.isfinite(got).all()),
+                  f'K5 non-finite, layer{spec["stage"]} {name}')
+            check(err <= tol, f'K5 disagrees with plain: layer'
+                  f'{spec["stage"]} {name} err {err} > tol {tol}')
+            del got, ref
+            reps = 10 if dtype == torch.bfloat16 else 4
+
+            def plain_blocks():
+                y = x
+                for b in blocks:
+                    y = b(y)
+                return y
+
+            with torch.inference_mode():
+                k_ms = timer.ms(lambda: fb.launch_fused_bottleneck_chain(
+                    xin, weights, h, w), reps=reps)
+                p_ms = timer.ms(lambda: fb.chain_reference(xin, weights, h,
+                                                           w), reps=3)
+                torch.backends.cudnn.allow_tf32 = True   # the card default
+                blocks_ms = timer.ms(plain_blocks, reps=reps)
+                torch.backends.cudnn.allow_tf32 = False
+            b = k5_bound(frames, spec, name)
+            results.append(dict(
+                shape=f'layer{spec["stage"]}', dtype=name,
+                form=f'{frames}x{h}x{w} {spec["cin"]}->{4 * spec["mid"]}',
+                blocks=spec['blocks'], launches=b['launches'],
+                max_abs_err=err, tol=tol, out_scale=scale, ms=k_ms,
+                plain_ms=p_ms, plain_blocks_ms=blocks_ms,
+                bound_ms=b['bound_ms'], bound_by=b['bound_by'],
+                bytes=b['bytes'], flops=b['flops'],
+                tflops=b['flops'] / k_ms / 1e9, library_ms=None))
+            del xin, weights
+        del feeds
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = True
+
+    # the Function: kernel forward, autograd of chain_reference backward;
+    # gradients of x and of every conv and BN parameter of layer1's chain
+    # through the fold, f32, at 2 frames of 12x10
+    blocks = list(model.backbone.layer1)
+    g = torch.from_numpy(rng.randn(2, 120, 256).astype(np.float32)).to(device)
+    x0 = torch.from_numpy(np.maximum(rng.randn(2, 120, 64), 0).astype(
+        np.float32)).to(device)
+
+    def grads(fn):
+        x = x0.clone().requires_grad_()
+        weights = [a for b in blocks
+                   for a in fb.fold_block_params(b, torch.float32)]
+        fn(x, weights, 12, 10).backward(g)
+        out = [x.grad] + [p.grad.clone() for b in blocks
+                          for p in b.parameters()]
+        model.zero_grad(set_to_none=True)
+        return out
+
+    before = fb.launch_count
+    got = grads(fb.fused_bottleneck_chain)
+    check(fb.launch_count == before + 10, 'K5 Function did not launch the '
+          'kernel 10 times for layer1')
+    ref = grads(fb.chain_reference)
+    grad_err = max((a - b).abs().max().item() / max(b.abs().max().item(),
+                                                     1e-30)
+                   for a, b in zip(got, ref))
+    check(grad_err <= TOL_K5_F32_REL, f'K5 Function gradient vs autograd '
+          f'of the plain version: {grad_err} > {TOL_K5_F32_REL}')
+    emit('kernel_k5', cases=results, grad_rel_err=grad_err,
+         grad_tol=TOL_K5_F32_REL, grad_tensors=len(ref))
+    del model, imgs
+    torch.cuda.empty_cache()
+    return results, grad_err
+
+
+def fused_counters():
+    from mcgaze_tpu_torch.ops import (fused_bottleneck, roi_align_cuda,
+                                      stqi_attention)
+    return dict(k1=roi_align_cuda.launch_count,
+                k3=roi_align_cuda.bwd_launch_count,
+                k4=stqi_attention.launch_count,
+                k5=fused_bottleneck.launch_count)
+
+
+def reset_counters():
+    from mcgaze_tpu_torch.ops import (fused_bottleneck, roi_align_cuda,
+                                      stqi_attention)
+    roi_align_cuda.launch_count = 0
+    roi_align_cuda.bwd_launch_count = 0
+    stqi_attention.launch_count = 0
+    fused_bottleneck.launch_count = 0
+
+
+def phase_slice_fused(device, timer):
+    """The fused configuration at full width through run_video, f32 and
+    bf16, counters from zero; one chunk in f32 with TF32 off against the
+    plain model on the same weights; then fwd_dedup at 32 clips in bf16."""
+    from mcgaze_tpu_torch import EvalConfig, ModelConfig, VideoGazeEvaluator
+    from mcgaze_tpu_torch.evaluation.driver import clip_slices
+    from mcgaze_tpu_torch.evaluation.forward import (bind_forward,
+                                                     make_eval_forward)
+    from mcgaze_tpu_torch.tools.kernel_bounds import chains, k5_launches
+
+    rng = np.random.RandomState(11)
+    frames = [rng.randint(0, 256, (224, 224, 3), np.uint8)
+              for _ in range(60)]
+    ecfg = EvalConfig(crop_ratio=None, clip_batch=8, dedup_frames=True)
+    n_clips = len(clip_slices(60, ecfg.clip_length, ecfg.stride))
+    n_forwards = -(-n_clips // ecfg.clip_batch)
+
+    built = {}
+    for dt in ('float32', 'bfloat16'):
+        cfg = ModelConfig(dtype=dt, backbone_impl='fused',
+                          fused_attention=True)
+        model, fwd, fwd_dedup = make_eval_forward(cfg, seed=0,
+                                                  device=device)
+        built[dt] = (model, fwd, fwd_dedup,
+                     bind_forward(fwd, device, fwd_dedup))
+
+    # the main path: launch counts from zero, read right after
+    reset_counters()
+    t0 = time.perf_counter()
+    res = {dt: VideoGazeEvaluator(built[dt][3], ecfg).run_video(frames, 0)
+           for dt in built}
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = fused_counters()
+    cfg = built['float32'][0].cfg
+    k5_per_forward = sum(k5_launches(ch) for ch in chains(cfg.backbone_depth))
+    forwards = 2 * n_forwards
+    expected = dict(k1=forwards * cfg.num_stages, k3=0,
+                    k4=forwards * cfg.num_stages,
+                    k5=forwards * k5_per_forward)
+    check(launches == expected, f'fused main path launched {launches}, '
+          f'expected {expected}')
+    for dt, r in res.items():
+        check(len(r['fusion_gazes']) == 60, f'{dt}: '
+              f'{len(r["fusion_gazes"])} frames in the result')
+        vals = [r['fusion_gazes']] + [
+            r[f'{c}_{k}'] for c in ('face', 'eyes', 'head')
+            for k in ('gazes', 'score')] + [
+            b for c in ('face', 'eyes', 'head') for b in r[f'{c}_bboxes']
+            if b is not None]
+        check(all(np.isfinite(np.asarray(v, np.float64)).all()
+                  for v in vals), f'fused {dt}: non-finite results')
+
+    # one chunk, f32, TF32 off: fused == plain model on the same weights,
+    # and fused fwd_dedup == fused fwd
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, fwd, fwd_dedup, _ = built['float32']
+    _, _, plain_dedup = make_eval_forward(ModelConfig(dtype='float32'),
+                                          seed=0, device=device)
+    sel = gaze_sel(k=8)
+    u8 = torch.from_numpy(np.stack(frames[:int(sel.max()) + 1])).to(device)
+    whwh = torch.full((u8.shape[0], 4), 224.0, device=device)
+    sel_t = torch.from_numpy(sel).to(device)
+    a = fwd_dedup(u8, sel_t, whwh, 7)
+    b = fwd(u8[sel_t.long()], whwh[sel_t.long()], 7)
+    p = plain_dedup(u8, sel_t, whwh, 7)
+    del plain_dedup
+    torch.backends.cudnn.allow_tf32 = True
+
+    def err(x, y):
+        box = ((x[0] - y[0]).abs().max() / y[0].abs().max().clamp_min(1.0))
+        return max(box.item(), (x[1] - y[1]).abs().max().item(),
+                   *((x[2][k] - y[2][k]).abs().max().item() for k in y[2]))
+
+    dedup_err, plain_err = err(a, b), err(a, p)
+    norms = torch.stack([a[2][k].norm(dim=-1) for k in a[2]])
+    check((norms - 1).abs().max().item() < 1e-4, 'fused f32 gazes not unit')
+    check(dedup_err <= TOL_E2E, f'fused fwd_dedup != fwd: {dedup_err}')
+    check(plain_err <= TOL_E2E, f'fused vs plain model end to end: '
+          f'{plain_err}')
+
+    # timing: fwd_dedup at 32 clips, bf16
+    model16, _, fwd_dedup16, _ = built['bfloat16']
+    del built, model, fwd, fwd_dedup
+    torch.cuda.empty_cache()
+    sel = gaze_sel(k=32)
+    u8 = torch.from_numpy(rng.randint(0, 256, (int(sel.max()) + 1, 224, 224,
+                                               3), np.uint8)).to(device)
+    whwh = torch.full((u8.shape[0], 4), 224.0, device=device)
+    sel_t = torch.from_numpy(sel).to(device)
+    out16 = fwd_dedup16(u8, sel_t, whwh, 7)
+    norms16 = torch.stack([out16[2][k].norm(dim=-1) for k in out16[2]])
+    check(all(bool(torch.isfinite(t).all())
+              for t in (out16[0], out16[1], *out16[2].values())),
+          'fused bf16 non-finite')
+    check((norms16 - 1).abs().max().item() < 2e-2, 'fused bf16 gazes not '
+          'unit')
+
+    def step():
+        return fwd_dedup16(u8, sel_t, whwh, 7)
+
+    torch.cuda.reset_peak_memory_stats()
+    fwd_ms = timer.ms(step, reps=10)
+    emit('slice_fused', frames=60, clips=n_clips,
+         forwards_per_video=n_forwards, launches=launches,
+         launches_expected=expected, k5_launches_per_forward=k5_per_forward,
+         main_path_seconds=main_s, fwd_dedup_vs_fwd_err=dedup_err,
+         fused_vs_plain_e2e_err=plain_err, tol_e2e=TOL_E2E,
+         bf16_k32_fwd_ms=fwd_ms, bf16_k32_clips_per_s=32 / (fwd_ms / 1e3),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    from mcgaze_tpu_torch.evaluation.forward import device_normalize
+    with torch.inference_mode():
+        norm = device_normalize(u8, whwh)
+        feats = model16.extract_features(norm)
+        whwh_s = whwh[sel_t.long()]
+    layers = dict(
+        backbone_fpn=lambda: model16.extract_features(norm),
+        heads=lambda: model16.run_heads(feats, whwh_s, 7, sel_t))
+    return launches, step, layers
+
+
+def backbone_grads(impl, dtype, frames, cotangents, device):
+    """Gradients of every backbone parameter and of the input for fixed
+    cotangents on the four outputs, in f64."""
+    from mcgaze_tpu_torch.models.mcgaze import ModelConfig, init_model
+    model = init_model(ModelConfig(backbone_impl=impl), seed=0, device=device)
+    net = model.backbone.to(dtype)
+    x = frames.to(dtype).clone().requires_grad_()
+    torch.autograd.backward(net(x), [c.to(dtype) for c in cotangents])
+    grads = {n: p.grad.double() for n, p in net.named_parameters()}
+    grads['input'] = x.grad.double()
+    return grads
+
+
+def phase_train_fused(device):
+    """One train step at 2 clips of the shipped config with
+    backbone_impl='fused' (fused_attention off: K4 is forward-only), f32,
+    TF32 off, against the plain backbone on the same weights: every log
+    key at TOL_E2E. K5 launches in the forwards; its backward recomputes
+    the plain version.
+
+    The gradients: for fixed cotangents on the four backbone outputs of 14
+    frames at 224 px, the fused backbone's f32 gradient of every parameter
+    and of the input is held against the plain backbone's float64 gradient
+    (each tensor relative to its largest value): its worst error must stay
+    within twice cuDNN's own f32 error on the same gradients, plus
+    TOL_E2E. A direct f32 comparison cannot hold: at these random weights
+    the f32 and f64 plain gradients differ by ~3% of a tensor's largest
+    value (ReLU kinks flip under rounding; measured on an H100), and the
+    step's head gradients move as much. The step's gradient differences
+    are printed, unchecked."""
+    from mcgaze_tpu_torch.models.mcgaze import init_model
+    from mcgaze_tpu_torch.tools.kernel_bounds import chains, k5_launches
+    from mcgaze_tpu_torch.tools.train import synthetic_batches
+    from mcgaze_tpu_torch.train import loop
+    from mcgaze_tpu_torch.utils.cfg_options import apply_overrides
+    from mcgaze_tpu_torch.utils.config import load_config
+
+    cfg = apply_overrides(load_config(TRAIN_CONFIG),
+                          ['data_train.batch_size=2'])
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in next(synthetic_batches(cfg, seed=3)).items()}
+    sides = {}
+    for impl in ('fused', 'plain'):
+        # the same seed gives both backbones the same weights
+        model = init_model(dataclasses.replace(cfg.model, backbone_impl=impl),
+                           seed=0, device=device)
+        st = loop.create_train_state(model.cfg, cfg.optim, model=model)
+        if impl == 'fused':
+            reset_counters()
+        loss, _ = loop.loss_fn(model.cfg, model, batch)
+        loss.backward()
+        grads = {n: p.grad.detach().clone() for n, p in
+                 model.named_parameters() if p.grad is not None}
+        model.zero_grad(set_to_none=True)
+        logs = loop.make_train_step(model.cfg, cfg.optim)(st, batch)
+        if impl == 'fused':
+            torch.cuda.synchronize()
+            launches = fused_counters()
+        sides[impl] = (logs, grads)
+        del st, model
+    (lf, gf), (lp, gp) = sides['fused'], sides['plain']
+    log_err = max(abs(lf[k].item() - lp[k].item())
+                  / max(abs(lp[k].item()), 1e-12) for k in lp)
+    check(sorted(gf) == sorted(gp), 'fused and plain backbones give '
+          'gradients of different parameters')
+    step_norm_err = max((gf[n] - gp[n]).norm().item()
+                        / max(gp[n].norm().item(), 1e-30) for n in gp)
+    step_max_err = max((gf[n] - gp[n]).abs().max().item()
+                       / max(gp[n].abs().max().item(), 1e-30) for n in gp)
+    del sides, batch
+
+    rng = np.random.RandomState(6)
+    frames = torch.from_numpy(rng.randn(14, 3, 224, 224).astype(
+        np.float32)).to(device).to(memory_format=torch.channels_last)
+    shapes = [(14, c, s, s) for c, s in ((256, 56), (512, 28), (1024, 14),
+                                         (2048, 7))]
+    cotangents = [torch.from_numpy(rng.randn(*sh).astype(np.float32)).to(
+        device) for sh in shapes]
+    truth = backbone_grads('plain', torch.float64, frames, cotangents, device)
+
+    def err(grads):
+        return max((grads[n] - truth[n]).abs().max().item()
+                   / max(truth[n].abs().max().item(), 1e-300) for n in truth)
+
+    fused_err = err(backbone_grads('fused', torch.float32, frames,
+                                   cotangents, device))
+    cudnn_err = err(backbone_grads('plain', torch.float32, frames,
+                                   cotangents, device))
+    torch.backends.cudnn.allow_tf32 = True
+    per_forward = sum(k5_launches(ch)
+                      for ch in chains(cfg.model.backbone_depth))
+    emit('train_fused', clips=2, launches=launches,
+         fused_vs_plain_log_rel_err=log_err, tol_e2e=TOL_E2E,
+         step_grad_norm_err=step_norm_err, step_grad_max_err=step_max_err,
+         backbone_grad_err_vs_f64=fused_err,
+         cudnn_f32_grad_err_vs_f64=cudnn_err,
+         backbone_grad_tol=2 * cudnn_err + TOL_E2E, grad_tensors=len(gp),
+         backbone_grad_tensors=len(truth), precision='float32, TF32 off')
+    check(launches['k5'] == 2 * per_forward and launches['k4'] == 0,
+          f'fused train step launched {launches}, expected {per_forward} K5 '
+          'per forward over 2 forwards and no K4')
+    check(log_err <= TOL_E2E, f'train step, fused vs plain backbone: a log '
+          f'key differs by {log_err} relative')
+    check(fused_err <= 2 * cudnn_err + TOL_E2E, f'fused backbone gradient '
+          f'vs float64: {fused_err}, cuDNN f32: {cudnn_err}')
+    del truth
+    torch.cuda.empty_cache()
+    return launches
 
 def main():
     if not torch.cuda.is_available():
@@ -695,23 +1155,49 @@ def main():
     timer = Timer(device)
     cases = phase_kernel(device, timer)
     bwd_cases = phase_kernel_bwd(device, timer)
+    k4_cases = phase_kernel_k4(device, timer)
+    k5_cases, _ = phase_kernel_k5(device, timer)
     del timer
     torch.cuda.empty_cache()
     eval_launches, step, layers = phase_slice(device, Timer(device))
     phase_profile(step, layers, Timer(device))
     del step, layers
     torch.cuda.empty_cache()
+    fused_launches, step, layers = phase_slice_fused(device, Timer(device))
+    phase_profile(step, layers, Timer(device), phase='profile_fused',
+                  kernels=(('roi_align', 'roi_align_fpn'),
+                           ('k4', 'stqi_attention_kernel'),
+                           ('k5', 'conv_gemm')))
+    del step, layers
+    torch.cuda.empty_cache()
     train_launches, train_step, train_ms = phase_train(device)
     phase_train_profile(train_step, train_ms)
+    del train_step
+    torch.cuda.empty_cache()
+    train_fused_launches = phase_train_fused(device)
 
     # each kernel beside the case of the path that runs it: K1 at the eval
-    # shape (bf16, frame_idx), K3 at the training shape (f32, identity)
+    # shape (bf16, frame_idx), K3 at the training shape (f32, identity), K4
+    # at the eval shape (f32, 32 clips), K5 summed over the four stage
+    # chains at the eval shape in bf16
     k1 = next(c for c in cases if c['shape'] == 'gaze_eval'
               and c['dtype'] == 'bfloat16' and c['form'] == 'frame_idx')
     k3 = next(c for c in bwd_cases if c['shape'] == 'gaze_train'
               and c['dtype'] == 'float32' and c['form'] == 'identity')
+    k4 = next(c for c in k4_cases if c['shape'] == 'gaze_eval')
+    k5_bf16 = [c for c in k5_cases if c['dtype'] == 'bfloat16']
+    worst = max(k5_bf16, key=lambda c: c['max_abs_err'] / c['tol'])
+    k5 = dict(shape='resnet50 chains layer1-4', dtype='bfloat16',
+              form='131 frames at 224 px, summed',
+              max_abs_err=worst['max_abs_err'], tol=worst['tol'],
+              **{k: sum(c[k] for c in k5_bf16)
+                 for k in ('ms', 'plain_ms', 'plain_blocks_ms', 'bound_ms')},
+              bound_by=('operations' if all(c['bound_by'] == 'operations'
+                                            for c in k5_bf16) else 'bytes'))
 
     def line(name, source, replaces, launches, case):
+        extra = ({'plain_blocks_ms': case['plain_blocks_ms']}
+                 if 'plain_blocks_ms' in case else {})
         return dict(
             name=name, route='cuda', source=source, replaces=replaces,
             launches=sum(launches.values()), launches_by_path=launches,
@@ -719,16 +1205,27 @@ def main():
             case=f"{case['shape']} {case['dtype']} {case['form']}",
             ms=case['ms'], plain_ms=case['plain_ms'],
             bound_ms=case['bound_ms'], bound_by=case['bound_by'],
-            library_ms=None)
+            library_ms=None, **extra)
 
     print(json.dumps({'kernels': [
         line('roi_align_fpn', 'mcgaze_tpu_torch/csrc/roi_align_fpn.cu',
              'mcgaze_tpu/ops/roi_align_pallas.py:424',
-             dict(eval=eval_launches, train=train_launches['k1']), k1),
+             dict(eval=eval_launches, eval_fused=fused_launches['k1'],
+                  train=train_launches['k1']), k1),
         line('roi_align_fpn_bwd',
              'mcgaze_tpu_torch/csrc/roi_align_fpn_bwd.cu',
              'mcgaze_tpu/ops/roi_align_pallas.py:772',
-             dict(train=train_launches['k3']), k3)]}), flush=True)
+             dict(train=train_launches['k3']), k3),
+        line('fused_stqi_attention',
+             'mcgaze_tpu_torch/csrc/stqi_attention.cu',
+             'mcgaze_tpu/ops/stqi_attention.py:110',
+             dict(eval_fused=fused_launches['k4']), k4),
+        line('fused_bottleneck_chain',
+             'mcgaze_tpu_torch/csrc/fused_bottleneck.cu',
+             'mcgaze_tpu/ops/fused_bottleneck.py:125',
+             dict(eval_fused=fused_launches['k5'],
+                  train_fused=train_fused_launches['k5']), k5)]}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,

@@ -1,5 +1,5 @@
 """Query-interaction and gaze heads, counterpart of
-mcgaze_tpu/models/heads.py (unfused, unbatched path).
+mcgaze_tpu/models/heads.py (unbatched path).
 
   * STQIHead: spatial then temporal self-attention through ONE shared
     attention module and ONE shared LayerNorm, DynamicConv instance
@@ -9,9 +9,11 @@ mcgaze_tpu/models/heads.py (unfused, unbatched path).
     features, the learned 9 -> 3 fusion, unit-norm outputs
     (reference gaze_head.py).
 
-Module names follow the reference state dict (`attention.attn.in_proj_*`,
-`ffn.layers.0.0`, `cls_fcs.{3i}`, ...), so a reference checkpoint loads
-as it is. LayerNorm eps is 1e-5 everywhere.
+With `fused_attention`, STQIHead runs steps (a)+(b) through
+ops/stqi_attention.py (one kernel launch per stage on a card) on the same
+parameters. Module names follow the reference state dict
+(`attention.attn.in_proj_*`, `ffn.layers.0.0`, `cls_fcs.{3i}`, ...), so a
+reference checkpoint loads as it is. LayerNorm eps is 1e-5 everywhere.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.stqi_attention import fused_stqi_attention
 from .layers import LayerNorm, Linear
 
 CLUES = ('face', 'eyes', 'head')
@@ -122,14 +125,11 @@ class STQIHead(nn.Module):
                  num_cls_fcs=1, num_reg_fcs=3, fused_attention=False,
                  batched_clues=False):
         super().__init__()
-        if fused_attention:
-            raise NotImplementedError(
-                'fused_attention is not ported yet: the fused STQI '
-                'attention kernel is ROADMAP Queue 2, K4')
         if batched_clues:
             raise NotImplementedError(
                 'batched_clue_heads is not ported yet (ROADMAP Queue 1, '
                 'item 10: opt-ins of the JAX package)')
+        self.fused_attention = fused_attention
         self.attention = MultiheadAttention(channels, num_heads)
         self.attention_norm = LayerNorm(channels)
         self.instance_interactive_conv = DynamicConv(channels, feat_channels,
@@ -149,12 +149,25 @@ class STQIHead(nn.Module):
         n, nq, c = query.shape
         t = clip_length
         b = n // t
-        # (a) spatial: the Q clue queries of each frame attend to each other
-        q = self.attention_norm(self.attention(query))
-        # (b) temporal, same weights and norm: each clue across T frames
-        q = q.reshape(b, t, nq, c).transpose(1, 2).reshape(b * nq, t, c)
-        q = self.attention_norm(self.attention(q))
-        q = q.reshape(b, nq, t, c).transpose(1, 2).reshape(n, nq, c)
+        if self.fused_attention:
+            # (a) + (b) in f32 in one call, as the JAX fused head does
+            attn, norm = self.attention.attn, self.attention_norm
+            q = fused_stqi_attention(
+                query.float().contiguous(),
+                attn.in_proj_weight.float().t().contiguous(),
+                attn.in_proj_bias.float(),
+                attn.out_proj.weight.float().t().contiguous(),
+                attn.out_proj.bias.float(), norm.weight.float(),
+                norm.bias.float(), clip_length=t,
+                heads=attn.heads).to(query.dtype)
+        else:
+            # (a) spatial: the Q clue queries of each frame attend to each
+            # other
+            q = self.attention_norm(self.attention(query))
+            # (b) temporal, same weights and norm: each clue across T frames
+            q = q.reshape(b, t, nq, c).transpose(1, 2).reshape(b * nq, t, c)
+            q = self.attention_norm(self.attention(q))
+            q = q.reshape(b, nq, t, c).transpose(1, 2).reshape(n, nq, c)
 
         # (c) DynamicConv + residual + LN
         flat_q = q.reshape(n * nq, c)

@@ -49,12 +49,18 @@ class ModelConfig:
     finest_scale: float = 56.0
     gaze_dim: int = 3
     dtype: str = 'float32'
+    # each stage's two attention passes and their LNs in one call
+    # (ops/stqi_attention.py, the CUDA kernel on a card); forward only on
+    # a card, same state dict
     fused_attention: bool = False
     batched_clue_heads: bool = False
     # 'auto': the CUDA kernel on a CUDA device, the plain version on the
     # CPU (ops/roi_align_cuda.py::roi_align_fpn); 'mm': the plain version
     # everywhere (the kernel's reference)
     roi_impl: str = 'auto'
+    # 'plain': cuDNN convolutions with unfused FrozenBN; 'fused': every
+    # stride-1 bottleneck through the fused chain (ops/fused_bottleneck.py,
+    # the CUDA kernel on a card); same state dict
     backbone_impl: str = 'plain'
     # loss weights (configs/multiclue_gaze/multiclue_gaze_r50_gaze360.py)
     loss_cls_weight: float = 2.0
@@ -103,14 +109,14 @@ class MCGazeModel(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.backbone_impl != 'plain':
-            raise NotImplementedError(
-                f"backbone_impl={cfg.backbone_impl!r} is not ported yet: the "
-                'fused bottleneck chain kernel is ROADMAP Queue 2, K5')
+        if cfg.backbone_impl not in ('plain', 'fused'):
+            raise ValueError(f'backbone_impl={cfg.backbone_impl!r}: '
+                             "'plain' or 'fused'")
         if cfg.roi_impl not in ('auto', 'mm'):
             raise ValueError(f"roi_impl={cfg.roi_impl!r}: 'auto' or 'mm'")
         self.cfg = cfg
-        self.backbone = ResNet(cfg.backbone_depth)
+        self.backbone = ResNet(cfg.backbone_depth,
+                               fused_blocks=cfg.backbone_impl == 'fused')
         self.neck = FPN(out_channels=cfg.channels)
         self.rpn_head = _RPNHead(cfg.num_queries, cfg.channels)
         self.roi_head = _RoIHead(cfg)

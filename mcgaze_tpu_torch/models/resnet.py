@@ -7,6 +7,12 @@ running_var). Module and parameter names are the reference's
 (`conv1`, `bn1`, `layer{s}.{i}.conv{j}`, `downsample.{0,1}`), so a
 reference state dict loads as it is. Runs in whatever memory format its
 input has; the model feeds it channels_last.
+
+`fused_blocks` (True, or a tuple of 0-based stages) runs each chosen
+stage's stride-1 bottlenecks through ops/fused_bottleneck.py (the CUDA
+chain kernel on a card, its plain version on the CPU), with the BN folded
+into the convolutions at every call: the modules, and so the state dict,
+are those of the plain path. Stride-2 lead-in blocks stay plain.
 """
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.fused_bottleneck import fold_block_params, fused_bottleneck_chain
 from .layers import Conv2d
 
 # depth -> blocks per stage (bottleneck depths only)
@@ -78,10 +85,6 @@ class ResNet(nn.Module):
     def __init__(self, depth: int = 50, fused_blocks=False,
                  s2d_stem: bool = False):
         super().__init__()
-        if fused_blocks:
-            raise NotImplementedError(
-                'fused_blocks is not ported yet: the fused bottleneck '
-                'chain kernel is ROADMAP Queue 2, K5')
         if s2d_stem:
             raise NotImplementedError(
                 's2d_stem is not ported yet (ROADMAP Queue 1, item 10: '
@@ -89,6 +92,8 @@ class ResNet(nn.Module):
         if depth not in RESNET_SPECS:
             raise ValueError(f'bottleneck depth {depth} not in '
                              f'{sorted(RESNET_SPECS)}')
+        self.fused_stages = (tuple(range(4)) if fused_blocks is True
+                             else tuple(fused_blocks or ()))
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = FrozenBatchNorm(64)
         cin, mid = 64, 64
@@ -106,6 +111,28 @@ class ResNet(nn.Module):
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         outs = []
         for stage in range(4):
-            x = getattr(self, f'layer{stage + 1}')(x)
+            layer = getattr(self, f'layer{stage + 1}')
+            if stage in self.fused_stages:
+                lead = [b for b in layer if b.conv2.stride != (1, 1)]
+                for block in lead:
+                    x = block(x)
+                chain = list(layer)[len(lead):]
+                if chain:
+                    x = _fused_chain(x, chain)
+            else:
+                x = layer(x)
             outs.append(x)
         return tuple(outs)
+
+
+def _fused_chain(x, blocks):
+    """The stride-1 `blocks` over NCHW x through the fused chain, in x's
+    dtype. The chain takes (N, H*W, C) rows: a channels_last x is already
+    that in memory, and the result comes back as a channels_last NCHW
+    view."""
+    n, c, h, w = x.shape
+    weights = [a for block in blocks
+               for a in fold_block_params(block, x.dtype)]
+    y = x.permute(0, 2, 3, 1).reshape(n, h * w, c).contiguous()
+    y = fused_bottleneck_chain(y, weights, h, w)
+    return y.view(n, h, w, -1).permute(0, 3, 1, 2)

@@ -19,7 +19,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG / '_build'
-SOURCES = ('roi_align_fpn', 'roi_align_fpn_bwd')
+SOURCES = ('roi_align_fpn', 'roi_align_fpn_bwd', 'fused_bottleneck',
+           'stqi_attention')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 

@@ -1,0 +1,162 @@
+"""Fused clue x frame attention of the STQI head, counterpart of
+mcgaze_tpu/ops/stqi_attention.py.
+
+Per clip of T frames x Q clue tokens (t-major, q-minor), the head's one
+shared 8-head attention runs twice with its residual and the one shared
+LayerNorm (eps 1e-5): first spatially (a token sees the Q tokens of its
+frame), then temporally (a token sees the T tokens of its clue), the qkv
+and out projections included.
+
+  * `stqi_attention_reference` is the plain version: the math of the JAX
+    kernel's `_kernel` / `_masked_attention` in torch f32, as full
+    attention over a clip's T*Q tokens with logits scaled by 1/sqrt(hd)
+    and a -1e9 additive mask.
+  * `launch_stqi_attention` runs the hand-written kernel
+    csrc/stqi_attention.cu, one CTA per clip; `launch_count` counts its
+    launches. Forward only, like the JAX kernel (it has no vjp).
+  * `fused_stqi_attention` is what the head calls: CPU tensors go to the
+    plain version, CUDA tensors to the kernel. There is no fallback from
+    the card to the plain version.
+
+Weights are in the JAX layout: wqkv (C, 3C) and wout (C, C) are applied as
+x @ w (the transposes of torch's in_proj_weight and out_proj.weight).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _native
+
+launch_count = 0
+
+LN_EPS = 1e-5
+_THREADS, _GROUP, _MAX_COLS = 256, 24, 3      # csrc/stqi_attention.cu
+_MAX_SMEM = 232448                            # a block's limit on sm_90
+_MAX_HEAD_DIM = 32                            # one lane per channel of a head
+
+
+def _layer_norm(x, scale, bias, eps=LN_EPS):
+    mu = x.mean(-1, keepdim=True)
+    var = (x - mu).square().mean(-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps) * scale + bias
+
+
+def _masked_attention(x, wqkv, bqkv, wout, bout, allowed, heads):
+    """x (B, S, C); allowed (S, S) bool. Returns x + out_proj(attn)."""
+    b, s, c = x.shape
+    hd = c // heads
+    qkv = torch.matmul(x, wqkv) + bqkv
+    q, k, v = (t.reshape(b, s, heads, hd).transpose(1, 2)
+               for t in qkv.split(c, dim=-1))
+    logits = torch.matmul(q, k.transpose(-1, -2)) * (hd ** -0.5)
+    logits = logits + torch.where(allowed, 0.0, -1e9)
+    attn = torch.softmax(logits, dim=-1)
+    out = torch.matmul(attn, v).transpose(1, 2).reshape(b, s, c)
+    return x + (torch.matmul(out, wout) + bout)
+
+
+def stqi_attention_reference(query, wqkv, bqkv, wout, bout, ln_scale,
+                             ln_bias, clip_length: int, heads: int = 8
+                             ) -> torch.Tensor:
+    """query (N = B*T, Q, C) -> (N, Q, C), computed in f32 and returned in
+    query's dtype."""
+    n, nq, c = query.shape
+    t = clip_length
+    s = t * nq
+    x = query.float().reshape(n // t, s, c)
+    tok = torch.arange(s, device=query.device)
+    spatial = (tok[:, None] // nq) == (tok[None, :] // nq)     # same frame
+    temporal = (tok[:, None] % nq) == (tok[None, :] % nq)      # same clue
+    w = [p.float() for p in (wqkv, bqkv, wout, bout, ln_scale, ln_bias)]
+    y = _layer_norm(_masked_attention(x, *w[:4], spatial, heads), *w[4:])
+    y = _layer_norm(_masked_attention(y, *w[:4], temporal, heads), *w[4:])
+    return y.reshape(n, nq, c).to(query.dtype)
+
+
+def fused_stqi_attention(query, wqkv, bqkv, wout, bout, ln_scale, ln_bias,
+                         clip_length: int, heads: int = 8) -> torch.Tensor:
+    """Spatial attention + LN + temporal attention + LN of the STQI head:
+    CPU tensors through the plain version, CUDA tensors through the
+    kernel."""
+    tensors = (query, wqkv, bqkv, wout, bout, ln_scale, ln_bias)
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f'fused_stqi_attention: inputs on several devices '
+                         f'{sorted(map(str, devices))}')
+    if query.device.type == 'cpu':
+        return stqi_attention_reference(*tensors, clip_length, heads)
+    return launch_stqi_attention(*tensors, clip_length, heads)
+
+
+def smem_bytes(tokens: int, c: int) -> int:
+    """The kernel's shared memory: x, qkv and the attention output in f32,
+    rows padded to its register group of tokens."""
+    rows = -(-tokens // _GROUP) * _GROUP
+    return rows * 5 * c * 4
+
+
+def launch_stqi_attention(query, wqkv, bqkv, wout, bout, ln_scale, ln_bias,
+                          clip_length: int, heads: int = 8) -> torch.Tensor:
+    """The kernel alone: f32 contiguous CUDA tensors, one CTA per clip on
+    the current stream; no synchronisation. Refuses a query that needs a
+    gradient while grad mode is on (the kernel has no backward)."""
+    global launch_count
+    what = 'stqi_attention kernel'
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (query, wqkv, bqkv, wout, bout,
+                                      ln_scale, ln_bias)):
+        raise RuntimeError(f'{what}: inputs that need a gradient; the kernel '
+                           'is forward-only, like the JAX kernel')
+    if query.dim() != 3:
+        raise ValueError(f'{what}: query {tuple(query.shape)}, needs '
+                         '(B*T, Q, C)')
+    n, nq, c = query.shape
+    t = clip_length
+    if t <= 0 or n % t:
+        raise ValueError(f'{what}: {n} query rows are not whole clips of '
+                         f'{t} frames')
+    if heads <= 0 or c % heads or c // heads > _MAX_HEAD_DIM:
+        raise ValueError(f'{what}: C={c} over {heads} heads; it takes heads '
+                         f'of at most {_MAX_HEAD_DIM} channels')
+    if c % 4 or c > _THREADS or nq * t > 32:
+        raise ValueError(f'{what}: C={c}, {nq * t} tokens per clip; it takes '
+                         f'C a multiple of 4 up to {_THREADS} and at most 32 '
+                         'tokens')
+    smem = smem_bytes(nq * t, c)
+    if smem > _MAX_SMEM:
+        raise ValueError(f'{what}: {smem} bytes of shared memory, above '
+                         f'{_MAX_SMEM}')
+    shapes = dict(wqkv=(c, 3 * c), bqkv=(3 * c,), wout=(c, c), bout=(c,),
+                  ln_scale=(c,), ln_bias=(c,))
+    weights = (wqkv, bqkv, wout, bout, ln_scale, ln_bias)
+    for (name, shape), w in zip(shapes.items(), weights):
+        if tuple(w.shape) != shape:
+            raise ValueError(f'{what}: {name} {tuple(w.shape)}, needs {shape}')
+    for x in (query, *weights):
+        if x.dtype != torch.float32:
+            raise TypeError(f'{what}: {x.dtype}; it takes float32')
+        if not x.is_cuda:
+            raise RuntimeError(f'{what}: a {x.device} tensor given; the '
+                               'kernel runs on a CUDA device only')
+        if x.device != query.device:
+            raise ValueError(f'{what}: inputs on several devices')
+        if not x.is_contiguous():
+            raise ValueError(f'{what}: non-contiguous input '
+                             f'{tuple(x.shape)} stride {x.stride()}')
+
+    out = torch.empty_like(query)
+    lib = _native.load('stqi_attention')
+    fn = lib.mcg_stqi_attention
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * 8 + [i] * 5 + [ctypes.c_float, p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(query.device):
+        stream = torch.cuda.current_stream(query.device).cuda_stream
+        err = fn(query.data_ptr(), *(w.data_ptr() for w in weights),
+                 out.data_ptr(), n // t, t, nq, c, heads,
+                 float((c // heads) ** -0.5), stream)
+    _native.check(lib, err, 'stqi_attention kernel launch')
+    launch_count += 1
+    return out

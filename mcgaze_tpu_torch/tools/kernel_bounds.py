@@ -1,24 +1,30 @@
-"""Least device time of the two TPU kernels not yet ported, K4
-(mcgaze_tpu/ops/stqi_attention.py::fused_stqi_attention) and K5
-(mcgaze_tpu/ops/fused_bottleneck.py::fused_bottleneck_chain), worked out
-from their code and the gaze model's shapes, on one H100 SXM:
+"""Least device time of K4 (csrc/stqi_attention.cu, the port of
+mcgaze_tpu/ops/stqi_attention.py::fused_stqi_attention) and K5
+(csrc/fused_bottleneck.cu, the port of
+mcgaze_tpu/ops/fused_bottleneck.py::fused_bottleneck_chain) on one H100
+SXM, worked out from the gaze model's shapes:
 
     python -m mcgaze_tpu_torch.tools.kernel_bounds
 
-Prints one JSON object. Bound = max(bytes / 3.35 TB/s, flops / peak),
-each input read once and each output written once. Peaks (NVIDIA's data
-sheet, dense, at 700 W) follow the precision each path runs at with the
-card's defaults: eval in bf16 on the tensor cores (989 TFLOP/s); train in
-f32, where the attention's matmuls run outside the tensor cores (matmul
-TF32 off, 67 TFLOP/s) and the convolutions in cuDNN TF32 (495 TFLOP/s).
-Neither kernel runs on a main path (both are opt-in);
-`launches_if_enabled` is what a forward would launch with the option on.
-No card is used.
+Prints one JSON object: for eval (32 clips, 131 unique frames, bf16) and
+train (32 clips = 224 frames, f32) the bound of K4 per stage and of K5 per
+ResNet-50 stage chain, with the launches each forward makes. chip_smoke.py
+computes the bounds of the shapes it runs with the same functions.
+
+Bound = max(bytes / 3.35 TB/s, flops / peak), each input read once and
+each output written once (the chain's intermediates do not count: an
+ideal kernel keeps them on chip). The peak is that of the type the kernel
+computes in (NVIDIA's data sheet, dense, at 700 W): K4 computes in f32
+outside the tensor cores on both paths (the head casts its query to f32),
+67 TFLOP/s; K5 in bf16 on the tensor cores, 989 TFLOP/s, or in f32 by
+FMA without TF32, 67 TFLOP/s. No card is used.
 """
 import json
 
+from ..models.resnet import RESNET_SPECS
+
 HBM_BYTES_PER_S = 3.35e12
-PEAKS = dict(bf16=989e12, tf32=495e12, f32=67e12)
+PEAKS = dict(bfloat16=989e12, float32=67e12)
 
 
 def bound(nbytes, flops, peak):
@@ -28,59 +34,86 @@ def bound(nbytes, flops, peak):
                 bound_by='bytes' if t_bytes >= t_ops else 'operations')
 
 
-def k4_bound(clips, itemsize, peak, c=256, q=3, t=7):
-    """One call per stage over (clips*T*Q, C) tokens: per pass (over the 3
-    clues, then the T frames) the packed qkv projection, the out
-    projection, logits and values over the pass's sequence, a LayerNorm."""
+def k4_bound(clips, t=7, q=3, c=256):
+    """One launch per stage over (clips*T*Q, C) f32 tokens: per pass (over
+    the Q clues of a frame, then the T frames of a clue) the packed qkv
+    projection, the logits and values over the pass's sequence, the out
+    projection, the residual and a LayerNorm."""
     tokens = clips * t * q
     flops = sum(2 * tokens * c * 3 * c + 2 * tokens * c * c
                 + 4 * tokens * seq * c + 8 * tokens * c for seq in (q, t))
     weights = c * 3 * c + 3 * c + c * c + 3 * c
-    nbytes = 2 * tokens * c * itemsize + weights * 4
-    return bound(nbytes, flops, peak)
+    nbytes = 2 * tokens * c * 4 + weights * 4
+    return bound(nbytes, flops, PEAKS['float32'])
 
 
-def k5_bound(frames, itemsize, peak, budget=10 * 2 ** 20):
-    """Every stride-1 bottleneck of each R50 stage per frame (layer1 from
-    block 0 with its downsample, the others after their stride-2
-    lead-in), chained in groups of at most `budget` bytes of folded
-    weights (models/resnet.py). Returns the bound and the launches."""
-    size, flops, nbytes, launches = 56, 0, 0, 0
-    for stage, (n_blocks, mid) in enumerate(((3, 64), (4, 128), (6, 256),
-                                             (3, 512))):
-        cin = 64 if stage == 0 else 4 * mid
-        size = size if stage == 0 else size // 2
-        nbytes += size * size * cin * itemsize * frames
-        group = 0
-        for b in range(0 if stage == 0 else 1, n_blocks):
-            macs = cin * mid + 9 * mid * mid + mid * 4 * mid
-            if b == 0:
-                macs += cin * 4 * mid
-            w_bytes = (macs + 6 * mid + (4 * mid if b == 0 else 0)) * itemsize
-            flops += 2 * macs * size * size * frames
-            nbytes += w_bytes
-            if group == 0 or group + w_bytes > budget:
-                launches += 1
-                group = 0
-            group += w_bytes
-            cin = 4 * mid
-        nbytes += size * size * 4 * mid * itemsize * frames
-    return dict(bound(nbytes, flops, peak), launches_if_enabled=launches)
+def chains(depth=50, image=224):
+    """The stride-1 chain of each ResNet stage as the fused backbone runs
+    it: layer1 from block 0 (with its downsample), the others after their
+    stride-2 lead-in. [dict(stage, size, cin, mid, blocks, down)]."""
+    out = []
+    size, mid = image // 4, 64
+    for stage, n_blocks in enumerate(RESNET_SPECS[depth]):
+        first = 0 if stage == 0 else 1
+        if n_blocks > first:
+            out.append(dict(stage=stage + 1, size=size,
+                            cin=64 if stage == 0 else 4 * mid, mid=mid,
+                            blocks=n_blocks - first, down=stage == 0))
+        size //= 2
+        mid *= 2
+    return out
 
 
-def queued_bounds(clips=32, stages=4):
+def k5_launches(chain) -> int:
+    """The kernel's launches for one chain: one per convolution."""
+    return 3 * chain['blocks'] + int(chain['down'])
+
+
+def k5_bound(frames, chain, dtype):
+    """One stage chain over `frames` frames: x read once, the output
+    written once, the folded weights (A's in the dtype, f32 biases) read
+    once; 2 flops per multiply-add of its convolutions."""
+    itemsize = 2 if dtype == 'bfloat16' else 4
+    pixels = frames * chain['size'] ** 2
+    cin, mid = chain['cin'], chain['mid']
+    cout = 4 * mid
+    macs = 0
+    w_bytes = 0
+    for b in range(chain['blocks']):
+        k = cin * mid + 9 * mid * mid + mid * cout
+        biases = 2 * mid + cout
+        if b == 0 and chain['down']:
+            k += cin * cout
+            biases += cout
+        macs += k
+        w_bytes += k * itemsize + biases * 4
+        cin = cout
+    nbytes = pixels * (chain['cin'] + cout) * itemsize + w_bytes
+    return dict(bound(nbytes, 2 * macs * pixels, PEAKS[dtype]),
+                launches=k5_launches(chain))
+
+
+def path_bounds(frames, clips, dtype, stages=4, depth=50):
+    """K4 and K5 of one forward: K4 per stage, K5 per chain and summed."""
+    per_chain = {f"layer{ch['stage']}": k5_bound(frames, ch, dtype)
+                 for ch in chains(depth)}
+    total = dict(bound_ms=sum(v['bound_ms'] for v in per_chain.values()),
+                 flops=sum(v['flops'] for v in per_chain.values()),
+                 bytes=sum(v['bytes'] for v in per_chain.values()),
+                 launches=sum(v['launches'] for v in per_chain.values()))
+    return dict(frames=frames, clips=clips, dtype=dtype,
+                K4=dict(k4_bound(clips), launches=stages),
+                K5=dict(total=total, **per_chain))
+
+
+def gaze_bounds(clips=32):
     """Eval: 32 clips -> 224 slots, 131 unique frames, bf16. Train: 32
     clips = 224 frames, f32."""
-    return dict(
-        eval=dict(frames=131, clips=clips, dtype='bfloat16',
-                  K4=dict(k4_bound(clips, 2, PEAKS['bf16']), peak='bf16',
-                          launches_if_enabled=stages),
-                  K5=dict(k5_bound(131, 2, PEAKS['bf16']), peak='bf16')),
-        train=dict(frames=224, clips=clips, dtype='float32',
-                   K4=dict(k4_bound(clips, 4, PEAKS['f32']), peak='f32',
-                           launches_if_enabled=stages),
-                   K5=dict(k5_bound(224, 4, PEAKS['tf32']), peak='tf32')))
+    return dict(eval=path_bounds(131, clips, 'bfloat16'),
+                eval_f32=path_bounds(131, clips, 'float32'),
+                train=path_bounds(224, clips, 'float32'),
+                K4_one_clip=k4_bound(1))
 
 
 if __name__ == '__main__':
-    print(json.dumps(queued_bounds(), indent=1))
+    print(json.dumps(gaze_bounds(), indent=1))

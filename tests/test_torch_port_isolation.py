@@ -32,7 +32,8 @@ def test_port_imports_no_jax():
     n_modules = int(out.stdout.split()[0])
     assert n_modules >= 30, out.stdout
     walked = set(out.stdout.splitlines()[1].split())
-    for name in ('ops.losses', 'ops.roi_align_cuda', 'train.loop',
+    for name in ('ops.losses', 'ops.roi_align_cuda', 'ops.fused_bottleneck',
+                 'ops.stqi_attention', 'train.loop',
                  'train.criterion', 'train.hooks', 'train.targets',
                  'tools.train', 'utils.config', 'utils.checkpoint',
                  'data.dataset', 'data.coco_vid'):

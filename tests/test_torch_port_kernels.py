@@ -13,12 +13,24 @@ the kernel only its output). The backward kernel (K3) is held against the
 plain version's autograd gradient at the same tolerances, scaled by the
 largest |gradient| in f32: its f32 atomics add a cell's terms in an order
 that changes from run to run.
+
+K5 (fused bottleneck chain) is held against `chain_reference` at 1e-4 of
+the plain output's largest value in f32 (K up to 9*64 summed in another
+order through two blocks) and 2e-2 of it in bf16; its Function's
+gradients against autograd of `chain_reference` at 1e-4 of each
+gradient's largest value. K4 (fused STQI attention, f32 only) is held
+against `stqi_attention_reference` at 2e-5 absolute (LN outputs are O(1)),
+and the fused STQIHead against the unfused one at the model's tolerances.
 """
 import numpy as np
 import pytest
 import torch
 
-from mcgaze_tpu_torch.ops import roi_align_cuda
+from mcgaze_tpu_torch.models.heads import STQIHead
+from mcgaze_tpu_torch.models.layers import init_weights
+from mcgaze_tpu_torch.models.resnet import Bottleneck
+from mcgaze_tpu_torch.ops import fused_bottleneck, roi_align_cuda
+from mcgaze_tpu_torch.ops import stqi_attention
 from mcgaze_tpu_torch.ops.roi_align import roi_align_fpn_mm
 
 TOL_F32 = 1e-5
@@ -158,3 +170,184 @@ def test_roi_align_bwd_kernel_is_the_adjoint(cuda_device, with_frame_idx):
               for f, d in zip(feats, grads))
     scale = out.double().norm().item() * g.double().norm().item()
     assert abs(lhs - rhs) <= 1e-5 * scale, (lhs, rhs, scale)
+
+
+# ------------------------------------------------------------ K5 and K4
+
+def random_blocks(seed, cin=64, mid=64, n_blocks=2):
+    """Stride-1 Bottlenecks (the first with a downsample when cin !=
+    4*mid) with seeded weights and BN statistics, on the CPU."""
+    gen = torch.Generator().manual_seed(seed)
+    blocks = []
+    for _ in range(n_blocks):
+        blk = Bottleneck(cin, mid, 1)
+        init_weights(blk, gen)
+        with torch.no_grad():
+            for name, b in blk.named_buffers():
+                if name.endswith('running_mean'):
+                    b.normal_(0.0, 0.1, generator=gen)
+                elif name.endswith('running_var'):
+                    b.uniform_(0.5, 1.5, generator=gen)
+            for name, p in blk.named_parameters():
+                if p.dim() == 1:
+                    p.normal_(1.0 if name.endswith('weight') else 0.0, 0.1,
+                              generator=gen)
+        blocks.append(blk)
+        cin = 4 * mid
+    return blocks
+
+
+def chain_case(device, dtype, frames=3, h=7, w=9, seed=0):
+    """x (frames, h*w, 64) and the folded weights of two blocks (64 -> 256
+    with a downsample, then 256 -> 256): 189 rows, a ragged row tile, a
+    non-square frame."""
+    blocks = [b.to(device) for b in random_blocks(seed)]
+    x = torch.from_numpy(np.random.RandomState(seed).randn(
+        frames, h * w, 64).astype(np.float32)).to(device, dtype)
+    with torch.no_grad():
+        weights = [a for b in blocks
+                   for a in fused_bottleneck.fold_block_params(b, dtype)]
+    return blocks, x, weights, h, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_fused_bottleneck_kernel_matches_plain(cuda_device, dtype):
+    _, x, weights, h, w = chain_case(cuda_device, dtype)
+    before = fused_bottleneck.launch_count
+    with torch.no_grad():
+        got = fused_bottleneck.fused_bottleneck_chain(x, weights, h, w)
+        torch.cuda.synchronize()
+        ref = fused_bottleneck.chain_reference(x, weights, h, w)
+    assert fused_bottleneck.launch_count == before + 7    # 3 + 1 + 3 convs
+    assert got.dtype == dtype and got.shape == ref.shape == (3, 63, 256)
+    err = (got.float() - ref.float()).abs().max().item()
+    tol = (1e-4 if dtype == torch.float32 else TOL_BF16) * \
+        ref.float().abs().max().item()
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.cuda
+def test_fused_bottleneck_function_gradient(cuda_device):
+    """Kernel forward, autograd-of-the-plain-version backward: gradients of
+    x and of every conv and BN parameter through the fold, f32."""
+    def grads(device, fn):
+        blocks, x, _, h, w = chain_case(device, torch.float32, seed=3)
+        x.requires_grad_()
+        weights = [a for b in blocks
+                   for a in fused_bottleneck.fold_block_params(b,
+                                                               torch.float32)]
+        out = fn(x, weights, h, w)
+        g = torch.from_numpy(np.random.RandomState(4).randn(
+            *out.shape).astype(np.float32)).to(device)
+        out.backward(g)
+        return [x.grad] + [p.grad for b in blocks for p in b.parameters()]
+
+    before = fused_bottleneck.launch_count
+    got = grads(cuda_device, fused_bottleneck.fused_bottleneck_chain)
+    torch.cuda.synchronize()
+    assert fused_bottleneck.launch_count == before + 7
+    ref = grads(cuda_device, fused_bottleneck.chain_reference)
+    for a, b in zip(got, ref):
+        err = (a - b).abs().max().item()
+        assert err <= 1e-4 * b.abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_fused_bottleneck_kernel_refuses_what_it_does_not_take(cuda_device):
+    _, x, weights, h, w = chain_case(cuda_device, torch.float32)
+    launch = fused_bottleneck.launch_fused_bottleneck_chain
+    with pytest.raises(TypeError, match='float32 or bfloat16'):
+        launch(x.half(), weights, h, w)
+    with pytest.raises(TypeError, match='fold the weights'):
+        launch(x.bfloat16(), weights, h, w)
+    with pytest.raises(ValueError, match='non-contiguous'):
+        launch(x.transpose(1, 2).contiguous().transpose(1, 2), weights, h,
+               w)
+    with pytest.raises(ValueError, match='needs'):
+        launch(x, weights, h + 1, w)
+    with pytest.raises(RuntimeError, match='autograd Function'):
+        launch(x.clone().requires_grad_(), weights, h, w)
+    blocks = random_blocks(0, cin=48, mid=64, n_blocks=1)
+    with torch.no_grad():
+        odd = [a.to(cuda_device) for a in
+               fused_bottleneck.fold_block_params(blocks[0], torch.float32)]
+    with pytest.raises(ValueError, match='multiples of 32'):
+        launch(torch.zeros(1, h * w, 48, device=cuda_device), odd, h, w)
+
+
+def attention_case(device, clips=3, t=7, q=3, c=256, seed=0):
+    rng = np.random.RandomState(seed)
+
+    def arr(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.randn(*shape)).astype(
+            np.float32)).to(device)
+
+    query = arr(clips * t, q, c)
+    weights = (arr(c, 3 * c, scale=c ** -0.5), arr(3 * c, scale=0.1),
+               arr(c, c, scale=c ** -0.5), arr(c, scale=0.1),
+               1.0 + arr(c, scale=0.1), arr(c, scale=0.1))
+    return query, weights, t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('clips', [1, 3, 32])
+def test_stqi_attention_kernel_matches_plain(cuda_device, clips):
+    query, weights, t = attention_case(cuda_device, clips)
+    before = stqi_attention.launch_count
+    got = stqi_attention.fused_stqi_attention(query, *weights, t)
+    torch.cuda.synchronize()
+    assert stqi_attention.launch_count == before + 1
+    ref = stqi_attention.stqi_attention_reference(query, *weights, t)
+    assert (got - ref).abs().max().item() <= 2e-5
+    # clips are independent: moving the others leaves clip 0 as it was
+    if clips > 1:
+        perm = torch.cat([query[:t], query[t:].flip(0)])
+        again = stqi_attention.fused_stqi_attention(perm, *weights, t)
+        assert torch.equal(again[:t], got[:t])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_fused_stqi_head_matches_unfused_on_card(cuda_device, dtype):
+    """The head casts its query to f32 for the kernel and back: the fused
+    head equals the unfused one (2e-5 in f32; in bf16 2e-2 of the largest
+    output, where the unfused head also rounds inside the attention)."""
+    gen = torch.Generator().manual_seed(5)
+    heads = []
+    for fused in (False, True):
+        head = STQIHead(fused_attention=fused)
+        init_weights(head, torch.Generator().manual_seed(5))
+        heads.append(head.to(cuda_device).eval())
+    rng = np.random.RandomState(6)
+    roi = torch.from_numpy(rng.randn(2 * 7 * 3, 7, 7, 256).astype(
+        np.float32)).to(cuda_device, dtype)
+    query = torch.randn(2 * 7, 3, 256, generator=gen).to(cuda_device, dtype)
+    before = stqi_attention.launch_count
+    with torch.no_grad():
+        outs = [head(roi, query, 7) for head in heads]
+    assert stqi_attention.launch_count == before + 1
+    for a, b in zip(*outs):
+        err = (a.float() - b.float()).abs().max().item()
+        tol = 2e-5 if dtype == torch.float32 else \
+            TOL_BF16 * a.float().abs().max().item()
+        assert err <= tol, (err, tol)
+
+
+@pytest.mark.cuda
+def test_stqi_attention_kernel_refuses_what_it_does_not_take(cuda_device):
+    query, weights, t = attention_case(cuda_device)
+    launch = stqi_attention.launch_stqi_attention
+    with pytest.raises(TypeError, match='float32'):
+        launch(query.bfloat16(), *weights, t)
+    with pytest.raises(ValueError, match='whole clips'):
+        launch(query[:-1], *weights, t)
+    with pytest.raises(ValueError, match='heads'):
+        launch(query, *weights, t, heads=6)
+    with pytest.raises(ValueError, match='non-contiguous'):
+        launch(query, weights[0].t().contiguous().t(), *weights[1:], t)
+    with pytest.raises(RuntimeError, match='forward-only'):
+        launch(query.clone().requires_grad_(), *weights, t)
+    wide, wide_weights, _ = attention_case(cuda_device, clips=1, c=512)
+    with pytest.raises(ValueError, match='up to 256'):
+        launch(wide, *wide_weights, t, heads=16)

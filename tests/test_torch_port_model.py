@@ -165,9 +165,7 @@ def test_entry_points_refuse_missing_card():
         make_eval_forward(ModelConfig(**SMALL))
 
 
-@pytest.mark.parametrize('field,value', [('fused_attention', True),
-                                         ('batched_clue_heads', True),
-                                         ('backbone_impl', 'fused')])
+@pytest.mark.parametrize('field,value', [('batched_clue_heads', True)])
 def test_unported_options_raise(field, value):
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         MCGazeModel(ModelConfig(**SMALL, **{field: value}))
