@@ -28,6 +28,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
           gazes; fwd_dedup == fwd and kernel == plain RoIAlign end to end
           with TF32 off; then fwd_dedup timed at 32 clips in bf16
   profile torch.profiler over the timed forward: device time by kernel
+          (K1 must be listed)
   train   the shipped gaze360 config (R50, 4 stages, 32 clips = 224 frames
           at 224 px, f32, its OptimConfig), seeded random weights and
           synthetic batches, through mcgaze_tpu_torch.tools.train.main for
@@ -49,17 +50,21 @@ Phases, each printing one JSON line (any failure exits non-zero):
           frames at 224 px), bf16 and f32, on the full-width seeded model's
           folded weights and the activations its plain backbone feeds each
           chain: error and tolerance, kernel, plain and plain-Bottleneck
-          ms, the bound; and the autograd Function's gradients of x and of
+          ms, the bound, the per-launch floor, TFLOP/s and share of the
+          peak, and the library's ms (one cuDNN F.conv2d per convolution,
+          summed); and the autograd Function's gradients of x and of
           every conv and BN parameter against autograd of the plain version
   slice_fused  ModelConfig(backbone_impl='fused', fused_attention=True) at
           full width through VideoGazeEvaluator.run_video, f32 and bf16,
           with the K1, K3, K4 and K5 counters reset before and read after
           (4 K1, 4 K4 and 40 K5 launches per forward, no K3); finite
           results, unit gazes; one chunk in f32 with TF32 off against the
-          plain model on the same weights and fwd_dedup == fwd; then
-          fwd_dedup timed at 32 clips in bf16
-  profile_fused  torch.profiler over that forward: idle share, K4 and K5
-          ms per forward
+          plain model on the same weights and fwd_dedup == fwd; the same
+          chunk in bf16, fused and plain, each against the plain f32
+          forward (the fused error within twice the plain one plus
+          TOL_E2E); then fwd_dedup timed at 32 clips in bf16
+  profile_fused  torch.profiler over that forward: idle share, K1, K4 and
+          K5 ms per forward (a kernel the profiler does not list fails)
   train_fused  one train step at 2 clips with backbone_impl='fused', f32,
           TF32 off, against the plain backbone: every log key; K5 launches
           in the forwards, its backward recomputes the plain version; the
@@ -679,7 +684,9 @@ def phase_profile(step, layers, timer, phase='profile',
     """Where the K=32 bf16 forward's time goes: host wall clock per
     forward, device time of the layers (CUDA events), and device time by
     kernel from torch.profiler; idle share = 1 - kernel time / wall.
-    `kernels`: (key, name substring) pairs reported as <key>_ms_per_forward."""
+    `kernels`: (key, name substring) pairs reported as <key>_ms_per_forward,
+    each a kernel the path launches: one the profiler lists under no such
+    name, or at 0 ms, fails the phase."""
     walls = []
     for _ in range(6):
         torch.cuda.synchronize()
@@ -693,14 +700,17 @@ def phase_profile(step, layers, timer, phase='profile',
     rows = profile_rows(step, 3)
     busy = sum(r[0] for r in rows)
     per_kernel = {f'{key}_ms_per_forward':
-                  sum(r[0] for r in rows if sub in r[1]) if rows
-                  else 'not measured' for key, sub in kernels}
+                  sum(r[0] for r in rows if sub in r[1])
+                  for key, sub in kernels}
     emit(phase, wall_ms_per_forward=wall_ms, layer_ms=layer_ms,
-         kernel_ms_per_forward=busy if rows else 'not measured',
-         **per_kernel, kernels_per_forward=sum(r[2] for r in rows),
-         idle_share=(1 - busy / wall_ms) if rows else 'not measured',
+         kernel_ms_per_forward=busy, **per_kernel,
+         kernels_per_forward=sum(r[2] for r in rows),
+         idle_share=1 - busy / wall_ms,
          top=[dict(ms=round(ms, 4), calls=c, name=k[:80])
               for ms, k, c in rows[:12]])
+    for (key, sub), ms in zip(kernels, per_kernel.values()):
+        check(ms > 0, f'{phase}: the profiler lists no device time under '
+              f'"{sub}" ({key}), a kernel the path launches')
 
 
 # ------------------------------------------------------------- K4 and K5
@@ -771,15 +781,56 @@ def chain_feeds(backbone, imgs):
     return feeds
 
 
+def library_convs(xin, blocks, weights, h, w):
+    """The chain's convolutions as cuDNN calls, the library's yardstick
+    for K5: (input, weight, bias) of one F.conv2d per convolution in launch
+    order, on NCHW channels_last views of the same activations, with the
+    folded weights and their bias in the dtype. The inputs of each
+    convolution come from running the chain with those calls."""
+    import torch.nn.functional as F
+    from mcgaze_tpu_torch.ops.fused_bottleneck import split_blocks
+
+    def conv_args(a, b, ksize):
+        cout = a.shape[1]
+        wt = a.view(ksize, ksize, -1, cout).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        return wt, b.reshape(-1).to(a.dtype)
+
+    n = xin.shape[0]
+    x = xin.view(n, h, w, -1).permute(0, 3, 1, 2)
+    calls = []
+    for a1, b1, a2, b2, a3, b3, ad, bd in split_blocks(weights):
+        c1, c2, c3 = (conv_args(a1, b1, 1), conv_args(a2, b2, 3),
+                      conv_args(a3, b3, 1))
+        y1 = torch.relu(F.conv2d(x, *c1))
+        y2 = torch.relu(F.conv2d(y1, *c2, padding=1))
+        calls += [(x, *c1, 0), (y1, *c2, 1)]
+        idn = x
+        if ad is not None:
+            cd = conv_args(ad, bd, 1)
+            calls.append((x, *cd, 0))
+            idn = F.conv2d(x, *cd)
+        calls.append((y2, *c3, 0))
+        x = torch.relu(F.conv2d(y2, *c3) + idn)
+    return calls
+
+
 def phase_kernel_k5(device, timer, frames=131):
     """K5 against chain_reference for each ResNet-50 stage chain at the
     eval shape (131 frames at 224 px), bf16 and f32, on the full-width
     seeded model's folded weights and the activations its plain backbone
-    feeds each chain; kernel, plain and plain-Bottleneck ms, the bound.
-    Then the autograd Function's gradients at a small shape."""
+    feeds each chain; kernel, plain and plain-Bottleneck ms, the bound and
+    the per-launch floor, and the library's time: one cuDNN F.conv2d per
+    convolution with the folded weight and bias, summed over the chain
+    (without the residual add and the ReLUs, which K5 also computes: the
+    library's best case). Then the autograd Function's gradients at a
+    small shape."""
+    import torch.nn.functional as F
     from mcgaze_tpu_torch.models.mcgaze import ModelConfig, init_model
     from mcgaze_tpu_torch.ops import fused_bottleneck as fb
-    from mcgaze_tpu_torch.tools.kernel_bounds import chains, k5_bound
+    from mcgaze_tpu_torch.tools.kernel_bounds import (PEAKS, chains,
+                                                      k5_bound,
+                                                      k5_launch_floor)
 
     model = init_model(ModelConfig(backbone_impl='fused'), seed=0,
                        device=device)
@@ -826,8 +877,14 @@ def phase_kernel_k5(device, timer, frames=131):
                                                            w), reps=3)
                 torch.backends.cudnn.allow_tf32 = True   # the card default
                 blocks_ms = timer.ms(plain_blocks, reps=reps)
-                torch.backends.cudnn.allow_tf32 = False
+                torch.backends.cudnn.allow_tf32 = False  # as K5's f32
+                calls = library_convs(xin, blocks, weights, h, w)
+                lib_ms = timer.ms(lambda: [
+                    F.conv2d(xc, wt, bias, padding=pad)
+                    for xc, wt, bias, pad in calls], reps=reps)
+                del calls
             b = k5_bound(frames, spec, name)
+            fl = k5_launch_floor(frames, spec, name)
             results.append(dict(
                 shape=f'layer{spec["stage"]}', dtype=name,
                 form=f'{frames}x{h}x{w} {spec["cin"]}->{4 * spec["mid"]}',
@@ -836,7 +893,12 @@ def phase_kernel_k5(device, timer, frames=131):
                 plain_ms=p_ms, plain_blocks_ms=blocks_ms,
                 bound_ms=b['bound_ms'], bound_by=b['bound_by'],
                 bytes=b['bytes'], flops=b['flops'],
-                tflops=b['flops'] / k_ms / 1e9, library_ms=None))
+                launch_floor_ms=fl['floor_ms'], launch_floor_bytes=fl['bytes'],
+                tflops=b['flops'] / k_ms / 1e9,
+                peak_share=b['flops'] * 1e3 / k_ms / PEAKS[name],
+                library_ms=lib_ms,
+                library='F.conv2d (cuDNN) with bias, one per convolution, '
+                        'no residual add or ReLU; f32 with TF32 off'))
             del xin, weights
         del feeds
         torch.cuda.empty_cache()
@@ -977,6 +1039,33 @@ def phase_slice_fused(device, timer):
     check(plain_err <= TOL_E2E, f'fused vs plain model end to end: '
           f'{plain_err}')
 
+    # the same chunk in bf16, where K5 runs its tensor-core body: the fused
+    # and the plain bf16 forwards, each against the plain f32 forward p. The
+    # fused error may be at most twice the plain one plus TOL_E2E, in box
+    # error relative to the largest coordinate and in gaze angle (degrees)
+    _, _, plain_dedup16 = make_eval_forward(ModelConfig(dtype='bfloat16'),
+                                            seed=0, device=device)
+
+    def bf16_err(x):
+        box = ((x[0].float() - p[0]).abs().max()
+               / p[0].abs().max().clamp_min(1.0)).item()
+        deg = 0.0
+        for k in p[2]:
+            g, r = x[2][k].float(), p[2][k]
+            cos = (g * r).sum(-1) / (g.norm(dim=-1) * r.norm(dim=-1))
+            deg = max(deg, torch.rad2deg(torch.acos(cos.clamp(-1.0, 1.0)))
+                      .max().item())
+        return box, deg
+
+    fused16_err = bf16_err(built['bfloat16'][2](u8, sel_t, whwh, 7))
+    plain16_err = bf16_err(plain_dedup16(u8, sel_t, whwh, 7))
+    del plain_dedup16
+    for what, f_err, p_err in zip(('box', 'gaze degrees'), fused16_err,
+                                  plain16_err):
+        check(f_err <= 2 * p_err + TOL_E2E, f'fused bf16 forward: {what} '
+              f'error {f_err} against the plain f32 forward, above twice '
+              f'the plain bf16 forward\'s {p_err} plus {TOL_E2E}')
+
     # timing: fwd_dedup at 32 clips, bf16
     model16, _, fwd_dedup16, _ = built['bfloat16']
     del built, model, fwd, fwd_dedup
@@ -1004,6 +1093,9 @@ def phase_slice_fused(device, timer):
          launches_expected=expected, k5_launches_per_forward=k5_per_forward,
          main_path_seconds=main_s, fwd_dedup_vs_fwd_err=dedup_err,
          fused_vs_plain_e2e_err=plain_err, tol_e2e=TOL_E2E,
+         bf16_vs_f32_plain=dict(
+             fused_box_err=fused16_err[0], fused_gaze_deg=fused16_err[1],
+             plain_box_err=plain16_err[0], plain_gaze_deg=plain16_err[1]),
          bf16_k32_fwd_ms=fwd_ms, bf16_k32_clips_per_s=32 / (fwd_ms / 1e3),
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
 
@@ -1191,13 +1283,14 @@ def main():
               form='131 frames at 224 px, summed',
               max_abs_err=worst['max_abs_err'], tol=worst['tol'],
               **{k: sum(c[k] for c in k5_bf16)
-                 for k in ('ms', 'plain_ms', 'plain_blocks_ms', 'bound_ms')},
+                 for k in ('ms', 'plain_ms', 'plain_blocks_ms', 'bound_ms',
+                           'launch_floor_ms', 'library_ms')},
               bound_by=('operations' if all(c['bound_by'] == 'operations'
                                             for c in k5_bf16) else 'bytes'))
 
     def line(name, source, replaces, launches, case):
-        extra = ({'plain_blocks_ms': case['plain_blocks_ms']}
-                 if 'plain_blocks_ms' in case else {})
+        extra = {k: case[k] for k in ('plain_blocks_ms', 'launch_floor_ms')
+                 if k in case}
         return dict(
             name=name, route='cuda', source=source, replaces=replaces,
             launches=sum(launches.values()), launches_by_path=launches,
@@ -1205,7 +1298,7 @@ def main():
             case=f"{case['shape']} {case['dtype']} {case['form']}",
             ms=case['ms'], plain_ms=case['plain_ms'],
             bound_ms=case['bound_ms'], bound_by=case['bound_by'],
-            library_ms=None, **extra)
+            library_ms=case['library_ms'], **extra)
 
     print(json.dumps({'kernels': [
         line('roi_align_fpn', 'mcgaze_tpu_torch/csrc/roi_align_fpn.cu',

@@ -20,27 +20,60 @@
 // f32 bias; with an identity it rounds that to the dtype, adds the identity
 // (x, or the downsample's rounded output) as the JAX block does in the
 // dtype; ReLU where asked; then one rounding to the dtype. Products
-// accumulate in f32: bf16 on the tensor cores (WMMA, 16x16x16 tiles), f32
-// by FMA (no TF32, so it holds the plain version with TF32 off).
+// accumulate in f32: bf16 on the tensor cores (wgmma), f32 by FMA (no TF32,
+// so it holds the plain version with TF32 off).
 //
-// What bounds it on the card: operations. At the gaze eval shape (131
-// frames at 224 px, bf16) a chain is ~747 GFLOP against ~0.5 GB of
-// activations moved, far above the H100's ~295 flop/byte bf16 balance
-// point. This first design keeps every intermediate (y1, y2, the
-// downsample) in device memory, stages tiles through shared memory without
-// a pipeline, and reaches the tensor cores through WMMA, not wgmma: a
-// stage of one frame (layer1: 56*56*256 bf16 = 1.6 MB) does not fit the
-// 227 KB a block can hold, so the TPU's whole-chain-in-VMEM program does
-// not carry over. TMA, wgmma, cp.async pipelining and fusing a whole block
-// are later work.
+// What bounds it on the card. The whole chain is ~747 GFLOP at the gaze
+// eval shape (131 frames at 224 px, bf16): 0.755 ms at the bf16 peak, if
+// y1 and y2 stayed on chip. They cannot: a stage of one frame (layer1:
+// 56*56*256 bf16 = 1.6 MB) does not fit the 227 KB a block can hold, so the
+// TPU's whole-chain-in-VMEM program does not carry over, and each launch
+// moves its input, its output and the identity through device memory. That
+// per-launch floor is ~1.76 ms summed (kernel_bounds.k5_launch_floor):
+// layer1's thin N=64 convolutions are bound by bytes, the rest mostly by
+// how often a tile's operands come back from L2 (~5 TB/s on the H100).
 //
-// Constraints the wrapper checks: Cin a multiple of 32 (the K step, so a K
-// tile never straddles two 3x3 taps), Cout a multiple of 64 (the N tile),
-// 16-byte aligned contiguous tensors, fewer than 2^31 rows.
+// The bf16 design:
+//   * wgmma.mma_async (m64nBNk16, f32 accumulators in registers): two
+//     consumer warpgroups, each owning MT slabs of 64 rows of a 128 MT x BN
+//     tile; BN = 128 where Cout allows it, else 64 (layer1's N=64
+//     convolutions); K steps of 64 bf16 = 128 bytes, so every operand tile
+//     sits in shared memory in the 128-byte swizzle that the wgmma
+//     descriptors name. A is K-major, the weights (K, Cout) are read as they
+//     lie, MN-major (the transpose bit of B). MT = 2 halves the weights'
+//     re-reads from L2; the launch keeps MT = 1 for a convolution with an
+//     identity, and where 256-row tiles would leave more of the card idle
+//     in the last round of tiles.
+//   * One producer thread (of a warp beside the two consumer warpgroups,
+//     288 threads) keeps a ring of STAGES operand tiles in flight by
+//     TMA, each stage with a `full` and an `empty` mbarrier, so the loads of
+//     later K steps overlap the products of this one and the epilogue of
+//     the last tile. The weights and the A operand of a 1x1 are plain
+//     row-major matrices (cp.async.bulk.tensor.2d; rows past m read as
+//     zeros). The 3x3's A operand comes from TMA's im2col mode over the
+//     (N, H, W, C) activations: the map's walk starts one pixel before the
+//     tile's first on both axes, the tap (dx, dy) is the instruction's
+//     offset, and reads outside the frame give the zero padding (a gather
+//     by cp.async, 16 bytes a thread, ran the 3x3s ~1.6x slower).
+//   * Persistent: one block per SM walks the tiles (the N tiles of one row
+//     tile next to each other, so they share A in L2).
+//   * The epilogue runs on the accumulator fragments: bias (f32), the
+//     identity, ReLU, and the roundings above. Each warpgroup has a 64 x BN
+//     slab in shared memory whose 16-byte chunks are swizzled by row: the
+//     identity lands there by 16-byte cp.async copies while the products
+//     run, is read at the fragment's own column pairs and overwritten with
+//     the result, and the slab's rows go out in 16-byte coalesced stores,
+//     masked past the last row.
+//
+// Constraints the wrapper checks: Cin a multiple of 64 (the K step, so a K
+// tile never straddles two 3x3 taps), Cout a multiple of 64 (the smallest N
+// tile), 16-byte aligned contiguous tensors (TMA's rule too), fewer than
+// 2^31 rows.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes through
+                   // the runtime (cudaGetDriverEntryPoint), no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
@@ -91,124 +124,351 @@ __device__ __forceinline__ float finish(float acc, float bias, bool has_idn,
   return relu ? fmaxf(v, 0.0f) : v;
 }
 
-// ------------------------------------------------- bf16, tensor cores (WMMA)
+// ------------------------------------------- bf16: wgmma fed by TMA/cp.async
 
-constexpr int kBM = 128;  // rows of a block tile
-constexpr int kBN = 64;   // output channels of a block tile
-constexpr int kBK = 32;   // K step
-constexpr int kWarps = 4;  // each 32 rows x 64 channels: 2 x 4 WMMA tiles
-constexpr int kThreads = 32 * kWarps;
-constexpr int kLdA = kBK + 8;  // bf16; rows stay 16-byte aligned
-constexpr int kLdB = kBN + 8;
-constexpr int kLdC = kBN + 4;  // f32
-constexpr int kSmemA = kBM * kLdA * 2;
-constexpr int kSmemB = kBK * kLdB * 2;
-constexpr int kSmemC = kBM * kLdC * 4;
-constexpr int kSmem = (kSmemA + kSmemB > kSmemC) ? kSmemA + kSmemB : kSmemC;
+constexpr int kBK = 64;            // K step: 64 bf16 = one 128-byte row
+constexpr int kRowBytes = kBK * 2;
+constexpr int kThreads = 288;      // 2 consumer warpgroups + a producer warp
+constexpr int kConsumerWarps = 8;
 
-__global__ void __launch_bounds__(kThreads) conv_gemm_bf16(Conv p) {
-  using namespace nvcuda;
-  // the A and B tiles during the K loop, then the f32 accumulators
-  __shared__ __align__(128) unsigned char smem[kSmem];
-  bf16* sa = reinterpret_cast<bf16*>(smem);
-  bf16* sb = reinterpret_cast<bf16*>(smem + kSmemA);
-  float* sc = reinterpret_cast<float*>(smem);
+// A 128 MT x BN tile: each consumer warpgroup owns MT slabs of 64 rows.
+template <int BN, int MT, int STAGES>
+struct Tile {
+  static constexpr int kBM = 128 * MT;
+  static constexpr int kABytes = kBM * kRowBytes;
+  static constexpr int kBChunk = kBK * 64 * 2;          // 64 K rows x 64 N
+  static constexpr int kBBytes = kBK * BN * 2;
+  static constexpr int kStage = kABytes + kBBytes;      // multiple of 1 KB
+  static constexpr int kOutBytes = 2 * 64 * BN * 2;     // a slab per group
+  static constexpr int kBars = 2 * STAGES * 8;
+  // + 1 KB to align the ring to the 1024 bytes the swizzle repeats over
+  static constexpr int kSmem = 1024 + STAGES * kStage + kOutBytes + kBars;
+};
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int m0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
-  const int kdim = p.ksize * p.ksize * p.cin;
-  const bf16* a = static_cast<const bf16*>(p.a);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Wait until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// One TMA box of a 2-D map into shared memory; completes on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// The im2col box of a 4-D (N, H, W, C) map: channels [c, c + 64) of the
+// pixels the map's walk visits from (n, y, x), each displaced by the tap
+// (dx, dy); zeros outside the frame. Completes on `bar`.
+__device__ __forceinline__ void tma_load_im2col(void* dst,
+                                                const CUtensorMap* map,
+                                                uint64_t* bar, int c, int x,
+                                                int y, int n, uint16_t dx,
+                                                uint16_t dy) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8};" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c),
+      "r"(x), "r"(y), "r"(n), "h"(dx), "h"(dy)
+      : "memory");
+}
+
+// 16 bytes global -> shared; zeros where !valid (source size 0, no read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile: start
+// address, leading and stride byte offsets (16-byte units), layout 1.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
+}
+
+#define MCG_ACC8(b)                                                        \
+  "+f"(d[b + 0]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]),          \
+      "+f"(d[b + 4]), "+f"(d[b + 5]), "+f"(d[b + 6]), "+f"(d[b + 7])
+
+// d += A (64 x 16, K-major) * B (16 x BN, MN-major), one warpgroup (the
+// scale-d predicate is set: the tile's accumulators start at zero).
+template <int BN>
+__device__ __forceinline__ void wgmma(float* d, uint64_t da, uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma<64>(float* d, uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %34, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n\t}"
+      : MCG_ACC8(0), MCG_ACC8(8), MCG_ACC8(16), MCG_ACC8(24)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<128>(float* d, uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %66, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n\t}"
+      : MCG_ACC8(0), MCG_ACC8(8), MCG_ACC8(16), MCG_ACC8(24), MCG_ACC8(32),
+        MCG_ACC8(40), MCG_ACC8(48), MCG_ACC8(56)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+#undef MCG_ACC8
+
+// Keep the compiler from moving accumulator reads or writes across the
+// asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_acc(float* d) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-  }
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
 
-  for (int k0 = 0; k0 < kdim; k0 += kBK) {
-    // A: kBM rows x kBK channels, in 16-byte chunks of 8
-#pragma unroll
-    for (int it = 0; it < kBM * kBK / 8 / kThreads; ++it) {
-      const int idx = tid + it * kThreads;
-      const int r = idx / (kBK / 8);
-      const int c = (idx % (kBK / 8)) * 8;
-      const bf16* src = a_src<bf16>(p, m0 + r, k0 + c);
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (src) v = *reinterpret_cast<const uint4*>(src);
-      *reinterpret_cast<uint4*>(sa + r * kLdA + c) = v;
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory");
+}
+
+template <int BN, int MT, int STAGES>
+__global__ void __launch_bounds__(kThreads, 1)
+    conv_gemm_bf16(const __grid_constant__ CUtensorMap tm_x,
+                   const __grid_constant__ CUtensorMap tm_a, Conv p) {
+  using T = Tile<BN, MT, STAGES>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ring = smem;
+  bf16* stage_out = reinterpret_cast<bf16*>(smem + STAGES * T::kStage);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem + STAGES * T::kStage + T::kOutBytes);
+  uint64_t* empty = full + STAGES;
+
+  const bool im2col = p.ksize == 3;
+  const int n_tiles = p.cout / BN;
+  const int tiles = (p.m + T::kBM - 1) / T::kBM * n_tiles;
+  const int k_steps = p.ksize * p.ksize * p.cin / kBK;
+  const int wg = threadIdx.x / 128;
+  const int t = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);  // the TMA thread's arrive
+      mbar_init(&empty[s], kConsumerWarps);
     }
-    // B: kBK rows x kBN columns of the weight matrix
-#pragma unroll
-    for (int it = 0; it < kBK * kBN / 8 / kThreads; ++it) {
-      const int idx = tid + it * kThreads;
-      const int r = idx / (kBN / 8);
-      const int c = (idx % (kBN / 8)) * 8;
-      *reinterpret_cast<uint4*>(sb + r * kLdB + c) =
-          *reinterpret_cast<const uint4*>(
-              a + static_cast<int64_t>(k0 + r) * p.cout + n0 + c);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        wmma::load_matrix_sync(fa[i], sa + (warp * 32 + i * 16) * kLdA + kk,
-                               kLdA);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, sb + kk * kLdB + j * 16, kLdB);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(sc + (warp * 32 + i * 16) * kLdC + j * 16,
-                              acc[i][j], kLdC, wmma::mem_row_major);
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  const bf16* idn = static_cast<const bf16*>(p.idn);
-  bf16* out = static_cast<bf16*>(p.out);
+  if (wg == 2) {
+    // ------------------------------------------------------------ producer
+    if (t != 0) return;
+    const int kpt = p.cin / kBK;  // K steps per 3x3 tap
+    int s = 0;
+    uint32_t phase = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = tile / n_tiles * T::kBM;
+      const int n0 = tile % n_tiles * BN;
+      // 3x3: the tile's first pixel less the padding, where the im2col
+      // walk of tap (0, 0) starts
+      const int frame = im2col ? m0 / (p.h * p.w) : 0;
+      const int y0 = im2col ? m0 % (p.h * p.w) / p.w - 1 : 0;
+      const int x0 = im2col ? m0 % p.w - 1 : 0;
+      for (int kt = 0; kt < k_steps; ++kt) {
+        mbar_wait(&empty[s], phase ^ 1);
+        unsigned char* st = ring + s * T::kStage;
+        mbar_expect_tx(&full[s], T::kABytes + T::kBBytes);
+        if (im2col) {
+          const int tap = kt / kpt;
+          tma_load_im2col(st, &tm_x, &full[s], (kt - tap * kpt) * kBK, x0, y0,
+                          frame, tap % 3, tap / 3);
+        } else {
+          tma_load(st, &tm_x, &full[s], kt * kBK, m0);
+        }
 #pragma unroll
-  for (int it = 0; it < kBM * kBN / 8 / kThreads; ++it) {
-    const int idx = tid + it * kThreads;
-    const int r = idx / (kBN / 8);
-    const int c = (idx % (kBN / 8)) * 8;
-    const int row = m0 + r;
-    if (row >= p.m) continue;
-    const int64_t off = static_cast<int64_t>(row) * p.cout + n0 + c;
-    uint4 iv = make_uint4(0u, 0u, 0u, 0u);
-    if (idn) iv = *reinterpret_cast<const uint4*>(idn + off);
-    const __nv_bfloat162* ih = reinterpret_cast<const __nv_bfloat162*>(&iv);
-    uint4 ov;
-    __nv_bfloat162* oh = reinterpret_cast<__nv_bfloat162*>(&ov);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 id = __bfloat1622float2(ih[e]);
-      const float lo = finish<bf16>(sc[r * kLdC + c + 2 * e],
-                                    p.bias[n0 + c + 2 * e], idn != nullptr,
-                                    id.x, p.relu);
-      const float hi = finish<bf16>(sc[r * kLdC + c + 2 * e + 1],
-                                    p.bias[n0 + c + 2 * e + 1],
-                                    idn != nullptr, id.y, p.relu);
-      oh[e] = __floats2bfloat162_rn(lo, hi);
+        for (int c = 0; c < BN / 64; ++c) {
+          tma_load(st + T::kABytes + c * T::kBChunk, &tm_a, &full[s],
+                   n0 + c * 64, kt * kBK);
+        }
+        if (++s == STAGES) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
     }
-    *reinterpret_cast<uint4*>(out + off) = ov;
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  const int c = wg;  // rows [64 MT c, 64 MT (c + 1)) of the tile
+  const int warp = t / 32;
+  const int lane = t % 32;
+  const int frag_row = warp * 16 + lane / 4;  // and + 8, of each 64-row slab
+  const int frag_col = (lane % 4) * 2;        // + 8j, j < BN / 8
+  bf16* outs = stage_out + c * 64 * BN;  // one 64-row slab at a time
+  // identity convolutions run with MT = 1 (the launch picks it): `outs`
+  // holds one slab, and the identity's copies into it start with the tile
+  const bf16* idn = MT == 1 ? static_cast<const bf16*>(p.idn) : nullptr;
+  bf16* out = static_cast<bf16*>(p.out);
+  int s = 0;
+  uint32_t phase = 0;
+  float acc[MT][BN / 2];
+
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = tile / n_tiles * T::kBM + c * 64 * MT;  // this slab's
+    const int n0 = tile % n_tiles * BN;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[mt][i] = 0.0f;
+    }
+    if (idn) {
+      // the identity's slab into `outs` now, 16-byte copies that overlap
+      // the products; the epilogue reads it at the fragment's own columns
+      named_sync(1 + c);  // the previous tile's stores have read `outs`
+#pragma unroll
+      for (int i = 0; i < 64 * BN / 8 / 128; ++i) {
+        const int q = t + i * 128;
+        const int r = q / (BN / 8);
+        const int cc = q % (BN / 8);
+        const bool ok = m0 + r < p.m;
+        cp_async16(outs + r * BN + ((cc ^ (r % 8)) << 3),
+                   ok ? idn + static_cast<int64_t>(m0 + r) * p.cout + n0 +
+                            cc * 8
+                      : idn,
+                   ok);
+      }
+      asm volatile("cp.async.commit_group;" ::: "memory");
+    }
+    int prev = -1;
+    for (int kt = 0; kt < k_steps; ++kt) {
+      mbar_wait(&full[s], phase);
+      const uint32_t st = smem_u32(ring + s * T::kStage);
+      fence_acc<MT * BN / 2>(&acc[0][0]);
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        // A: +32 bytes per 16 K inside the swizzled row; B: +16 K rows
+        const uint64_t db =
+            sw128_desc(st + T::kABytes + kk * 16 * 128, T::kBChunk, 1024);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          wgmma<BN>(acc[mt],
+                    sw128_desc(st + (c * MT + mt) * 64 * kRowBytes + kk * 32,
+                               16, 1024),
+                    db);
+        }
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+      fence_acc<MT * BN / 2>(&acc[0][0]);
+      if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+      prev = s;
+      if (++s == STAGES) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    fence_acc<MT * BN / 2>(&acc[0][0]);
+    if (lane == 0) mbar_arrive(&empty[prev]);
+
+    // epilogue, slab by slab: bias, rounded identity, ReLU, rounding;
+    // through `outs`, whose 16-byte chunks are swizzled by row (c ^ r % 8)
+    // so that neither the fragments' accesses nor the rows' conflict
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      // the identity has landed / the previous slab's stores have read
+      if (idn) asm volatile("cp.async.wait_group 0;" ::: "memory");
+      named_sync(1 + c);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const float2 b =
+            *reinterpret_cast<const float2*>(p.bias + n0 + j * 8 + frag_col);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = frag_row + 8 * h;
+          __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(
+              outs + r * BN + ((j ^ (r % 8)) << 3) + frag_col);
+          const float2 id = idn ? __bfloat1622float2(*o) : make_float2(0, 0);
+          const float lo = finish<bf16>(acc[mt][4 * j + 2 * h], b.x,
+                                        idn != nullptr, id.x, p.relu);
+          const float hi = finish<bf16>(acc[mt][4 * j + 2 * h + 1], b.y,
+                                        idn != nullptr, id.y, p.relu);
+          *o = __floats2bfloat162_rn(lo, hi);
+        }
+      }
+      named_sync(1 + c);
+#pragma unroll
+      for (int i = 0; i < 64 * BN / 8 / 128; ++i) {
+        const int q = t + i * 128;
+        const int r = q / (BN / 8);
+        const int cc = q % (BN / 8);
+        const int row = m0 + mt * 64 + r;
+        if (row < p.m) {
+          *reinterpret_cast<uint4*>(out + static_cast<int64_t>(row) * p.cout +
+                                    n0 + cc * 8) =
+              *reinterpret_cast<const uint4*>(outs + r * BN +
+                                              ((cc ^ (r % 8)) << 3));
+        }
+      }
+    }
   }
 }
 
@@ -295,6 +555,127 @@ __global__ void __launch_bounds__(kFThreads) conv_gemm_f32(Conv p) {
   }
 }
 
+// ------------------------------------------------------------------- host
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+using EncodeIm2col = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const int*, const int*,
+                                  cuuint32_t, cuuint32_t, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// A driver function through the runtime, so the library needs no -lcuda.
+void* driver_fn(const char* name) {
+  void* sym = nullptr;
+  cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+  cudaGetDriverEntryPointByVersion(name, &sym, 12000, cudaEnableDefault,
+                                   &found);
+#else
+  cudaGetDriverEntryPoint(name, &sym, cudaEnableDefault, &found);
+#endif
+  return found == cudaDriverEntryPointSuccess ? sym : nullptr;
+}
+
+// A bf16 (rows, cols) row-major matrix as a TMA map of box_rows x 64
+// boxes in the 128-byte swizzle; reads past the last row give zeros.
+bool encode(CUtensorMap* map, const void* base, int cols, int rows,
+            int box_rows) {
+  static const auto enc =
+      reinterpret_cast<EncodeTiled>(driver_fn("cuTensorMapEncodeTiled"));
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+             const_cast<void*>(base), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The 3x3's operand: the (m / (h w), h, w, cin) activations as an im2col
+// map whose walk over each frame starts one pixel before it on both axes
+// and ends one pixel before its last (pad 1, 3 taps), `rows` pixels x 64
+// channels per box in the 128-byte swizzle; the taps' reads outside the
+// frame give the zero padding.
+bool encode_im2col(CUtensorMap* map, const Conv& p, int rows) {
+  static const auto enc =
+      reinterpret_cast<EncodeIm2col>(driver_fn("cuTensorMapEncodeIm2col"));
+  if (enc == nullptr) return false;
+  const cuuint64_t c = p.cin, w = p.w, h = p.h;
+  const cuuint64_t dims[4] = {c, w, h, static_cast<cuuint64_t>(p.m) / (h * w)};
+  const cuuint64_t strides[3] = {c * 2, w * c * 2, h * w * c * 2};
+  const int lower[2] = {-1, -1};
+  const int upper[2] = {-1, -1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+             const_cast<void*>(p.x), dims, strides, lower, upper, 64,
+             static_cast<cuuint32_t>(rows), elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BN, int MT, int STAGES>
+cudaError_t launch_bf16(const Conv& p, cudaStream_t st, int sms) {
+  using T = Tile<BN, MT, STAGES>;
+  CUtensorMap tm_x{}, tm_a{};
+  if (!(p.ksize == 3 ? encode_im2col(&tm_x, p, T::kBM)
+                     : encode(&tm_x, p.x, p.cin, p.m, T::kBM)) ||
+      !encode(&tm_a, p.a, p.cout, p.ksize * p.ksize * p.cin, kBK)) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      conv_gemm_bf16<BN, MT, STAGES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (p.m + T::kBM - 1) / T::kBM * (p.cout / BN);
+  const int grid = tiles < sms ? tiles : sms;
+  conv_gemm_bf16<BN, MT, STAGES><<<grid, kThreads, T::kSmem, st>>>(tm_x, tm_a,
+                                                                   p);
+  return cudaGetLastError();
+}
+
+// The share of the persistent blocks' last round of tiles that has work,
+// with `rows`-row tiles.
+double filled(const Conv& p, int rows, int bn, int sms) {
+  const int tiles = (p.m + rows - 1) / rows * (p.cout / bn);
+  const int rounds = (tiles + sms - 1) / sms;
+  return static_cast<double>(tiles) / (static_cast<double>(rounds) * sms);
+}
+
+// 256-row tiles halve the re-reads of the weights from L2, where the
+// registers allow them: a convolution with an identity keeps 128-row
+// tiles, whose staging slab holds the identity. So do the others where the
+// coarser tiles would leave more than 5% more of the card idle in the last
+// round (layer2 at 131 frames: 401 tiles of 256 rows on 132 SMs, 3.04
+// rounds).
+template <int BN>
+cudaError_t launch_bf16(const Conv& p, cudaStream_t st) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err != cudaSuccess) return err;
+  if (p.idn == nullptr &&
+      filled(p, 256, BN, sms) + 0.05 >= filled(p, 128, BN, sms)) {
+    return launch_bf16<BN, 2, BN == 128 ? 4 : 5>(p, st, sms);
+  }
+  return launch_bf16<BN, 1, BN == 128 ? 5 : 6>(p, st, sms);
+}
+
 }  // namespace
 
 extern "C" {
@@ -310,7 +691,7 @@ int mcg_conv_gemm(const void* x, const void* a, const float* bias,
                   const void* idn, void* out, int m, int h, int w, int cin,
                   int cout, int ksize, int relu, int dtype, void* stream) {
   if ((ksize != 1 && ksize != 3) || cin <= 0 || cin % kBK != 0 ||
-      cout <= 0 || cout % kBN != 0 || m < 0 ||
+      cout <= 0 || cout % 64 != 0 || m < 0 ||
       (ksize == 3 && (h <= 0 || w <= 0 || m % (h * w) != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -318,15 +699,15 @@ int mcg_conv_gemm(const void* x, const void* a, const float* bias,
   const Conv p{x, a, bias, idn, out, m, h, w, cin, cout, ksize, relu};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    const dim3 grid((m + kBM - 1) / kBM, cout / kBN);
-    conv_gemm_bf16<<<grid, kThreads, 0, st>>>(p);
-  } else if (dtype == 0) {
+    return static_cast<int>(cout % 128 == 0 ? launch_bf16<128>(p, st)
+                                            : launch_bf16<64>(p, st));
+  }
+  if (dtype == 0) {
     const dim3 grid((m + kFM - 1) / kFM, cout / kFN);
     conv_gemm_f32<<<grid, kFThreads, 0, st>>>(p);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

@@ -16,7 +16,8 @@ mcgaze_tpu/ops/fused_bottleneck.py.
     the residual adds in the dtype.
   * `launch_fused_bottleneck_chain` runs the chain on the card through the
     hand-written kernel csrc/fused_bottleneck.cu: one implicit-GEMM launch
-    per convolution, with bias, identity and ReLU in its epilogue.
+    per convolution, with bias, identity and ReLU in its epilogue (bf16:
+    wgmma fed through a ring of TMA and cp.async copies; f32: FMA).
     `launch_count` counts those launches.
   * `FusedBottleneckChainFunction`: the kernel forward; the backward is
     autograd of `chain_reference` (the JAX `_chain_bwd`; the JAX package
@@ -37,8 +38,10 @@ from . import _native
 launch_count = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the kernel's tile: Cin a multiple of its K step, Cout of its N tile
-_CIN_MULTIPLE, _COUT_MULTIPLE = 32, 64
+# the kernel's tile: Cin a multiple of its K step (64 bf16, one 128-byte
+# swizzled row, so a K tile never straddles two 3x3 taps), Cout of its
+# smallest N tile
+_CIN_MULTIPLE, _COUT_MULTIPLE = 64, 64
 
 
 def _bn_affine(bn):

@@ -13,7 +13,10 @@ computes the bounds of the shapes it runs with the same functions.
 
 Bound = max(bytes / 3.35 TB/s, flops / peak), each input read once and
 each output written once (the chain's intermediates do not count: an
-ideal kernel keeps them on chip). The peak is that of the type the kernel
+ideal kernel keeps them on chip). K5's per-launch floor
+(`k5_launch_floor`) is that bound taken launch by launch, as the kernel
+runs: each convolution's input, output and identity through device
+memory. The peak is that of the type the kernel
 computes in (NVIDIA's data sheet, dense, at 700 W): K4 computes in f32
 outside the tensor cores on both paths (the head casts its query to f32),
 67 TFLOP/s; K5 in bf16 on the tensor cores, 989 TFLOP/s, or in f32 by
@@ -25,6 +28,7 @@ from ..models.resnet import RESNET_SPECS
 
 HBM_BYTES_PER_S = 3.35e12
 PEAKS = dict(bfloat16=989e12, float32=67e12)
+ITEMSIZE = dict(bfloat16=2, float32=4)
 
 
 def bound(nbytes, flops, peak):
@@ -64,40 +68,77 @@ def chains(depth=50, image=224):
     return out
 
 
+def k5_convs(chain):
+    """The chain's convolutions in launch order: (cin, cout, ksize,
+    adds the identity)."""
+    cin, mid = chain['cin'], chain['mid']
+    cout = 4 * mid
+    convs = []
+    for b in range(chain['blocks']):
+        convs += [(cin, mid, 1, False), (mid, mid, 3, False)]
+        if b == 0 and chain['down']:
+            convs.append((cin, cout, 1, False))
+        convs.append((mid, cout, 1, True))
+        cin = cout
+    return convs
+
+
 def k5_launches(chain) -> int:
     """The kernel's launches for one chain: one per convolution."""
-    return 3 * chain['blocks'] + int(chain['down'])
+    return len(k5_convs(chain))
 
 
 def k5_bound(frames, chain, dtype):
     """One stage chain over `frames` frames: x read once, the output
     written once, the folded weights (A's in the dtype, f32 biases) read
     once; 2 flops per multiply-add of its convolutions."""
-    itemsize = 2 if dtype == 'bfloat16' else 4
+    itemsize = ITEMSIZE[dtype]
     pixels = frames * chain['size'] ** 2
-    cin, mid = chain['cin'], chain['mid']
-    cout = 4 * mid
-    macs = 0
-    w_bytes = 0
-    for b in range(chain['blocks']):
-        k = cin * mid + 9 * mid * mid + mid * cout
-        biases = 2 * mid + cout
-        if b == 0 and chain['down']:
-            k += cin * cout
-            biases += cout
-        macs += k
-        w_bytes += k * itemsize + biases * 4
-        cin = cout
-    nbytes = pixels * (chain['cin'] + cout) * itemsize + w_bytes
+    convs = k5_convs(chain)
+    macs = sum(k * k * ci * co for ci, co, k, _ in convs)
+    w_bytes = sum(k * k * ci * co * itemsize + co * 4
+                  for ci, co, k, _ in convs)
+    nbytes = pixels * (chain['cin'] + 4 * chain['mid']) * itemsize + w_bytes
     return dict(bound(nbytes, 2 * macs * pixels, PEAKS[dtype]),
-                launches=k5_launches(chain))
+                launches=len(convs))
+
+
+def k5_conv_bound(pixels, cin, cout, ksize, identity, dtype):
+    """One launch as the kernel runs it: its input, its folded weights and
+    bias and (with `identity`) the identity read once, its output written
+    once, over `pixels` rows."""
+    itemsize = ITEMSIZE[dtype]
+    k = ksize * ksize * cin
+    nbytes = (pixels * (cin + cout * (2 if identity else 1)) * itemsize
+              + k * cout * itemsize + cout * 4)
+    return bound(nbytes, 2 * pixels * k * cout, PEAKS[dtype])
+
+
+def k5_launch_floor(frames, chain, dtype):
+    """The least time of the chain as the kernel runs it, one launch per
+    convolution (k5_conv_bound summed): y1, y2 and the identity go through
+    device memory, which k5_bound leaves out."""
+    pixels = frames * chain['size'] ** 2
+    per_launch = [k5_conv_bound(pixels, *conv, dtype)
+                  for conv in k5_convs(chain)]
+    return dict(floor_ms=sum(b['bound_ms'] for b in per_launch),
+                bytes=sum(b['bytes'] for b in per_launch),
+                flops=sum(b['flops'] for b in per_launch),
+                launches=len(per_launch),
+                bytes_bound_launches=sum(b['bound_by'] == 'bytes'
+                                         for b in per_launch))
 
 
 def path_bounds(frames, clips, dtype, stages=4, depth=50):
-    """K4 and K5 of one forward: K4 per stage, K5 per chain and summed."""
-    per_chain = {f"layer{ch['stage']}": k5_bound(frames, ch, dtype)
-                 for ch in chains(depth)}
+    """K4 and K5 of one forward: K4 per stage, K5 per chain (with its
+    per-launch floor) and summed."""
+    per_chain = {f"layer{ch['stage']}": dict(
+        k5_bound(frames, ch, dtype),
+        launch_floor_ms=k5_launch_floor(frames, ch, dtype)['floor_ms'])
+        for ch in chains(depth)}
     total = dict(bound_ms=sum(v['bound_ms'] for v in per_chain.values()),
+                 launch_floor_ms=sum(v['launch_floor_ms']
+                                     for v in per_chain.values()),
                  flops=sum(v['flops'] for v in per_chain.values()),
                  bytes=sum(v['bytes'] for v in per_chain.values()),
                  launches=sum(v['launches'] for v in per_chain.values()))

@@ -15,8 +15,9 @@ largest |gradient| in f32: its f32 atomics add a cell's terms in an order
 that changes from run to run.
 
 K5 (fused bottleneck chain) is held against `chain_reference` at 1e-4 of
-the plain output's largest value in f32 (K up to 9*64 summed in another
-order through two blocks) and 2e-2 of it in bf16; its Function's
+the plain output's largest value in f32 (K up to 9*256 summed in another
+order through up to two blocks) and 2e-2 of it in bf16, where the
+tensor cores also sum K in another order; its Function's
 gradients against autograd of `chain_reference` at 1e-4 of each
 gradient's largest value. K4 (fused STQI attention, f32 only) is held
 against `stqi_attention_reference` at 2e-5 absolute (LN outputs are O(1)),
@@ -228,6 +229,40 @@ def test_fused_bottleneck_kernel_matches_plain(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('cin, mid, n_blocks, frames, h, w', [
+    (64, 64, 2, 5, 5, 3),        # N=64 and 256, downsample, frames 3 px wide
+    (512, 128, 2, 2, 14, 14),    # identity x on the first block, 392 rows
+    (1024, 256, 1, 3, 7, 7),     # N=256 and 1024, K=2304, 147 rows
+    (64, 64, 1, 40, 28, 28),     # 245 row tiles: several per block, and
+])                               # the ring wraps within and across tiles
+def test_fused_bottleneck_kernel_tilings(cuda_device, dtype, cin, mid,
+                                         n_blocks, frames, h, w):
+    """Shapes that reach the bf16 kernel's tiles: a ragged last row tile
+    (every case), a 3x3 on frames narrower than a tile, N=64 and N>=256
+    tiles, a chain whose first block adds x itself, Cin=64 with a
+    downsample, and more row tiles than the card has SMs."""
+    blocks = [b.to(cuda_device)
+              for b in random_blocks(1, cin=cin, mid=mid, n_blocks=n_blocks)]
+    x = torch.from_numpy(np.random.RandomState(1).randn(
+        frames, h * w, cin).astype(np.float32)).to(cuda_device, dtype)
+    with torch.no_grad():
+        weights = [a for b in blocks
+                   for a in fused_bottleneck.fold_block_params(b, dtype)]
+        before = fused_bottleneck.launch_count
+        got = fused_bottleneck.fused_bottleneck_chain(x, weights, h, w)
+        torch.cuda.synchronize()
+        ref = fused_bottleneck.chain_reference(x, weights, h, w)
+    assert fused_bottleneck.launch_count == \
+        before + 3 * n_blocks + int(cin != 4 * mid)
+    assert got.dtype == dtype and got.shape == ref.shape
+    err = (got.float() - ref.float()).abs().max().item()
+    tol = (1e-4 if dtype == torch.float32 else TOL_BF16) * \
+        ref.float().abs().max().item()
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.cuda
 def test_fused_bottleneck_function_gradient(cuda_device):
     """Kernel forward, autograd-of-the-plain-version backward: gradients of
     x and of every conv and BN parameter through the fold, f32."""
@@ -272,7 +307,7 @@ def test_fused_bottleneck_kernel_refuses_what_it_does_not_take(cuda_device):
     with torch.no_grad():
         odd = [a.to(cuda_device) for a in
                fused_bottleneck.fold_block_params(blocks[0], torch.float32)]
-    with pytest.raises(ValueError, match='multiples of 32'):
+    with pytest.raises(ValueError, match='multiples of 64'):
         launch(torch.zeros(1, h * w, 48, device=cuda_device), odd, h, w)
 
 
