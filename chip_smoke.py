@@ -19,7 +19,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
           <K1(F), G> = sum_l <F_l, K3(G)_l> in f64 sums at G = K1(F),
           relative to |K1(F)|^2: f32 and bf16,
           identity and frame_idx forms, at the gaze training shape (224
-          frames at 224 px, 3 RoIs, C=256) and R=100 at 384x640; error and
+          frames at 224 px, 3 RoIs, C=256) and R=100 at 384x640; in every
+          case two launches bitwise equal, a launch handed NaN-filled
+          memory finite with the cells no RoI reaches exactly 0, and its
+          peak extra device memory at most 1.1x its output; error and
           tolerance, kernel and plain ms, the bound
   slice   the full-width model (R50, C=256, FFN 2048, 4 stages, 224 px,
           seeded random weights) through VideoGazeEvaluator.run_video on a
@@ -42,9 +45,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
           idle share, K1 and K3 ms per step
   kernel_k4  the fused STQI attention kernel (K4) against its plain
           version at the eval shape (32 clips x 7 frames x 3 clues, C=256,
-          8 heads, f32) and at one clip: error and tolerance, kernel and
-          plain ms, the bound; permuting the other clips leaves clip 0 as
-          it was
+          8 heads, f32), at one clip, and at 3 heads of 32 channels: error
+          and tolerance, kernel and plain ms, the bound, the cluster size
+          and CTA count; permuting the other clips leaves clip 0 as it
+          was
   kernel_k5  the fused bottleneck chain kernel (K5) against its plain
           version for each ResNet-50 stage chain at the eval shape (131
           frames at 224 px), bf16 and f32, on the full-width seeded model's
@@ -96,9 +100,9 @@ TOL_F32_REL = 1e-5
 TOL_BF16_REL = 2e-2            # bf16: the plain version rounds its weights
 #                                and intermediate to bf16, the kernel does not
 # K3 against the plain version's autograd gradient: the same two
-# tolerances, scaled by the largest |gradient|; in f32 the atomics add a
-# cell's terms in an order that changes from run to run, in bf16 the plain
-# gradient rounds its intermediate to bf16 and the kernel only its output.
+# tolerances, scaled by the largest |gradient|; in f32 the kernel adds a
+# cell's terms in another (fixed) order, in bf16 the plain gradient rounds
+# its intermediate to bf16 and the kernel only its output.
 # The adjoint identity at G = K1(F): |<K1(F), K1(F)> - <F, K3(K1(F))>|
 # relative to |K1(F)|^2, which a K3 that returned zeros reads as 1 and one
 # that lost 1 term in 1e3 as ~1e-3. Sound kernels read f32 rounding, or in
@@ -249,19 +253,16 @@ def roi_work(rois, frame_idx, sizes, strides, c, itemsize, out=7, s=2,
 
 def roi_bwd_work(rois, frame_idx, sizes, strides, c, itemsize, frames,
                  out=7, s=2, finest=56.0):
-    """(bytes, flops, scatter bytes) of its transpose: the dense gradient
-    (every cell of `frames` pyramids) written once in its dtype, g, the
-    boxes and the map read once; the same 8 flops per channel per valid
-    (sample, corner). Scatter bytes, apart from the bound: a read and a
-    write of each touched cell, which an accumulating scatter adds over a
-    gather form that writes each cell once."""
+    """(bytes, flops) of its transpose: the dense gradient (every cell of
+    `frames` pyramids) written once in its dtype, g, the boxes and the map
+    read once; the same 8 flops per channel per valid (sample, corner)."""
     n, r = rois.shape[:2]
-    cells, valid_samples = roi_touch(rois, frame_idx, sizes, strides, out,
-                                     s, finest)
+    _, valid_samples = roi_touch(rois, frame_idx, sizes, strides, out, s,
+                                 finest)
     dense = frames * sum(h * w for h, w in sizes) * c * itemsize
     nbytes = (dense + n * r * out * out * c * itemsize + rois.nbytes
               + (0 if frame_idx is None else frame_idx.nbytes))
-    return nbytes, valid_samples * 4 * 2 * c, 2 * cells * c * itemsize
+    return nbytes, valid_samples * 4 * 2 * c
 
 
 def bound(nbytes, flops, peak=None):
@@ -332,7 +333,10 @@ def phase_kernel(device, timer):
 def phase_kernel_bwd(device, timer):
     """K3 against the plain version's autograd gradient at a random
     cotangent G, and the adjoint identity <K1(F), G> = sum_l <F_l, K3(G)_l>
-    in f64 sums at G = K1(F)."""
+    in f64 sums at G = K1(F); two launches bitwise equal; handed memory
+    the allocator last filled with NaN, every cell finite and the cells no
+    RoI reaches exactly 0; the launch's peak extra device memory at most
+    1.1x its output."""
     from mcgaze_tpu_torch.ops import roi_align_cuda
     from mcgaze_tpu_torch.ops.roi_align import roi_align_fpn_mm
 
@@ -350,6 +354,8 @@ def phase_kernel_bwd(device, timer):
     results = []
     for cs in cases:
         dtype = cs['dtype']
+        form = 'frame_idx' if cs['fidx'] is not None else 'identity'
+        what = f'{cs["shape"]} {dtype} form={form}'
         feats = make_pyramid(rng, cs['u'], cs['img'], 256, device, dtype)
         rois_np = make_rois(rng, cs['n'], cs['r'], cs['img'])
         rois = torch.from_numpy(rois_np).to(device)
@@ -358,8 +364,44 @@ def phase_kernel_bwd(device, timer):
         shapes = [tuple(f.shape) for f in feats]
         g = torch.from_numpy(rng.randn(cs['n'], cs['r'], 7, 7, 256).astype(
             np.float32)).to(device, dtype)
+        out_bytes = sum(f.numel() for f in feats) * feats[0].element_size()
+        # the cells no RoI reaches: where the plain f32 gradient of an
+        # all-ones cotangent (terms >= 0, nothing cancels) is 0
+        leaves32 = tuple(f.detach().float().requires_grad_() for f in feats)
+        reach = torch.autograd.grad(roi_align_fpn_mm(leaves32, rois, fidx),
+                                    leaves32, torch.ones(g.shape,
+                                                         device=device))
+        untouched = [b == 0 for b in reach]
+        del leaves32, reach
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()   # the poisoned block is then the only one
+        poison = torch.full((out_bytes // feats[0].element_size(),),
+                            float('nan'), dtype=dtype, device=device)
+        poisoned = poison.data_ptr()
+        del poison
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
         got = roi_align_cuda.launch_roi_align_fpn_bwd(g, rois, fidx, shapes)
         torch.cuda.synchronize()
+        check(got[0].data_ptr() == poisoned, f'K3 {what}: the output is not '
+              'in the NaN-filled block, the coverage check tests nothing')
+        extra = torch.cuda.max_memory_allocated() - before
+        check(extra <= 1.1 * out_bytes, f'K3 {what}: {extra} bytes of '
+              f'device memory for a {out_bytes}-byte output')
+        check(all(bool(torch.isfinite(x).all()) for x in got),
+              f'non-finite K3 output {what} (a cell left unwritten)')
+        check(all(bool((x[m] == 0).all()) for x, m in zip(got, untouched)),
+              f'K3 {what}: a cell no RoI reaches is not 0')
+        n_untouched = sum(int(m.sum()) for m in untouched)
+        del untouched
+        again = roi_align_cuda.launch_roi_align_fpn_bwd(g, rois, fidx,
+                                                        shapes)
+        bits = torch.int32 if dtype == torch.float32 else torch.int16
+        check(all(torch.equal(a.view(bits), b.view(bits))
+                  for a, b in zip(got, again)),
+              f'K3 {what}: two launches differ')
+        del again
         leaves = tuple(f.detach().requires_grad_() for f in feats)
         ref_out = roi_align_fpn_mm(leaves, rois, fidx)
         ref = torch.autograd.grad(ref_out, leaves, g, retain_graph=True)
@@ -367,11 +409,8 @@ def phase_kernel_bwd(device, timer):
                   for a, b in zip(got, ref))
         scale = max(b.float().abs().max().item() for b in ref)
         tol = (TOL_F32_REL if dtype == torch.float32 else TOL_BF16_REL) * scale
-        check(all(bool(torch.isfinite(x).all()) for x in got),
-              f'non-finite K3 output {cs["shape"]}')
-        check(err <= tol, f'K3 disagrees with plain autograd: {cs["shape"]} '
-              f'{dtype} form={"frame_idx" if fidx is not None else "identity"}'
-              f' err {err} > tol {tol}')
+        check(err <= tol, f'K3 disagrees with plain autograd: {what} '
+              f'err {err} > tol {tol}')
         fwd = roi_align_cuda.launch_roi_align_fpn(feats, rois, fidx)
         back = roi_align_cuda.launch_roi_align_fpn_bwd(fwd, rois, fidx,
                                                        shapes)
@@ -380,26 +419,26 @@ def phase_kernel_bwd(device, timer):
                   for f, d in zip(feats, back))
         adj = abs(lhs - rhs) / lhs
         adj_tol = TOL_ADJ_F32 if dtype == torch.float32 else TOL_ADJ_BF16
-        check(adj <= adj_tol, f'K3 is not the adjoint of K1: {cs["shape"]} '
-              f'{dtype}: {adj} > {adj_tol}')
+        check(adj <= adj_tol, f'K3 is not the adjoint of K1: {what}: '
+              f'{adj} > {adj_tol}')
         del fwd, back, got
         k_ms = timer.ms(lambda: roi_align_cuda.launch_roi_align_fpn_bwd(
             g, rois, fidx, shapes))
         p_ms = timer.ms(lambda: torch.autograd.grad(
             ref_out, leaves, g, retain_graph=True), reps=5)
-        nbytes, flops, scatter = roi_bwd_work(
+        nbytes, flops = roi_bwd_work(
             rois_np, cs['fidx'], [s[1:3] for s in shapes], (4, 8, 16, 32),
             256, feats[0].element_size(), cs['u'])
         b_ms, b_by = bound(nbytes, flops)
         results.append(dict(
             shape=cs['shape'], dtype=str(dtype).replace('torch.', ''),
-            form='frame_idx' if fidx is not None else 'identity',
-            u=cs['u'], n=cs['n'], r=cs['r'], max_abs_err=err, tol=tol,
-            grad_scale=scale, adjoint_rel_err=adj, adjoint_tol=adj_tol,
-            ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-            bytes=nbytes, flops=flops, scatter_bytes=scatter,
-            scatter_bound_ms=bound(nbytes + scatter, flops)[0],
-            library_ms=None))
+            form=form, u=cs['u'], n=cs['n'], r=cs['r'], max_abs_err=err,
+            tol=tol, grad_scale=scale, adjoint_rel_err=adj,
+            adjoint_tol=adj_tol, bitwise_repeat=True,
+            nan_prefilled_cells_untouched=n_untouched,
+            peak_extra_bytes=extra, out_bytes=out_bytes, ms=k_ms,
+            plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+            flops=flops, library_ms=None))
         del feats, leaves, ref_out, ref, g
         torch.cuda.empty_cache()
     emit('kernel_bwd', cases=results)
@@ -717,48 +756,57 @@ def phase_profile(step, layers, timer, phase='profile',
 
 def phase_kernel_k4(device, timer):
     """K4 against stqi_attention_reference on the card, f32: the eval shape
-    (32 clips) and one clip; clip 0 unchanged when the others move."""
+    (32 clips), one clip, and 3 heads of 32 channels (a cluster of 3);
+    clip 0 unchanged when the others move; the cluster plan."""
     from mcgaze_tpu_torch.ops import stqi_attention
     from mcgaze_tpu_torch.tools.kernel_bounds import k4_bound
 
     rng = np.random.RandomState(4)
-    t, q, c, heads = 7, 3, 256, 8
+    t, q = 7, 3
 
     def arr(*shape, scale=1.0, shift=0.0):
         return torch.from_numpy((shift + scale * rng.randn(*shape)).astype(
             np.float32)).to(device)
 
-    weights = (arr(c, 3 * c, scale=c ** -0.5), arr(3 * c, scale=0.1),
-               arr(c, c, scale=c ** -0.5), arr(c, scale=0.1),
-               arr(c, scale=0.1, shift=1.0), arr(c, scale=0.1))
+    def weights(c):
+        return (arr(c, 3 * c, scale=c ** -0.5), arr(3 * c, scale=0.1),
+                arr(c, c, scale=c ** -0.5), arr(c, scale=0.1),
+                arr(c, scale=0.1, shift=1.0), arr(c, scale=0.1))
+
+    gaze = weights(256)
     results = []
-    for clips in (32, 1):
+    for shape, clips, c, heads, w in (('gaze_eval', 32, 256, 8, gaze),
+                                      ('one_clip', 1, 256, 8, gaze),
+                                      ('three_heads', 32, 96, 3,
+                                       weights(96))):
         query = arr(clips * t, q, c)
-        got = stqi_attention.launch_stqi_attention(query, *weights, t, heads)
+        got = stqi_attention.launch_stqi_attention(query, *w, t, heads)
         torch.cuda.synchronize()
-        ref = stqi_attention.stqi_attention_reference(query, *weights, t,
-                                                      heads)
+        ref = stqi_attention.stqi_attention_reference(query, *w, t, heads)
         err = (got - ref).abs().max().item()
-        check(bool(torch.isfinite(got).all()), f'K4 non-finite, {clips} clips')
-        check(err <= TOL_K4, f'K4 disagrees with plain, {clips} clips: '
+        check(bool(torch.isfinite(got).all()), f'K4 non-finite, {shape}')
+        check(err <= TOL_K4, f'K4 disagrees with plain, {shape}: '
               f'{err} > {TOL_K4}')
         if clips > 1:
             perm = torch.cat([query[:t], query[t:].flip(0)])
-            again = stqi_attention.launch_stqi_attention(perm, *weights, t,
-                                                         heads)
-            check(torch.equal(again[:t], got[:t]), 'K4: clip 0 moved with '
-                  'the other clips')
+            again = stqi_attention.launch_stqi_attention(perm, *w, t, heads)
+            check(torch.equal(again[:t], got[:t]), f'K4 {shape}: clip 0 '
+                  'moved with the other clips')
+        plan = stqi_attention.cluster_plan(t * q, c, heads)
+        check(plan['cluster'] >= 2, f'K4 {shape}: a cluster of '
+              f'{plan["cluster"]}')
         k_ms = timer.ms(lambda: stqi_attention.launch_stqi_attention(
-            query, *weights, t, heads))
+            query, *w, t, heads))
         p_ms = timer.ms(lambda: stqi_attention.stqi_attention_reference(
-            query, *weights, t, heads), reps=10)
+            query, *w, t, heads), reps=10)
         b = k4_bound(clips, t, q, c)
-        results.append(dict(shape='gaze_eval' if clips == 32 else 'one_clip',
-                            dtype='float32', form=f'{clips} clips',
-                            clips=clips, max_abs_err=err, tol=TOL_K4,
-                            ms=k_ms, plain_ms=p_ms, bound_ms=b['bound_ms'],
-                            bound_by=b['bound_by'], bytes=b['bytes'],
-                            flops=b['flops'], library_ms=None))
+        results.append(dict(
+            shape=shape, dtype='float32', form=f'{clips} clips, {heads} heads',
+            clips=clips, c=c, heads=heads, cluster=plan['cluster'],
+            ctas=clips * plan['cluster'], smem_bytes=plan['smem_bytes'],
+            max_abs_err=err, tol=TOL_K4, ms=k_ms, plain_ms=p_ms,
+            bound_ms=b['bound_ms'], bound_by=b['bound_by'], bytes=b['bytes'],
+            flops=b['flops'], library_ms=None))
     emit('kernel_k4', cases=results)
     return results
 

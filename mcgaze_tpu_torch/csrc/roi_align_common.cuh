@@ -17,8 +17,8 @@ constexpr int kMaxLevels = 4;
 constexpr int kMaxOut = 16;
 constexpr int kMaxSampling = 4;
 
-// P is `const void*` for the forward's feature levels and `float*` for the
-// backward's f32 gradient levels.
+// P is `const void*` for the forward's feature levels and `void*` for the
+// backward's gradient levels.
 template <typename P>
 struct PyramidT {
   P ptr[kMaxLevels];
@@ -105,6 +105,17 @@ __device__ __forceinline__ int roi_level(float x1, float y1, float x2,
   return lvl;
 }
 
+// One axis of a RoI on a level: the first sample coordinate's origin and
+// the bin width, from the box edges a1 <= a2 (or inverted) in image pixels.
+__device__ __forceinline__ void axis_span(float a1, float a2, float stride,
+                                          int out_size, float* start,
+                                          float* bin) {
+  const float s0 = __fadd_rn(__fdiv_rn(a1, stride), -0.5f);
+  const float e0 = __fadd_rn(__fdiv_rn(a2, stride), -0.5f);
+  *start = s0;
+  *bin = __fdiv_rn(e0 - s0, static_cast<float>(out_size));
+}
+
 // The routed level and the sample geometry of bin row i of RoI `box`
 // (x1, y1, x2, y2): ys[sy] for the row's `sampling` sample rows, and
 // xs[j * sampling + sx] for every bin column. Every thread of the block
@@ -126,17 +137,15 @@ __device__ __forceinline__ int row_geometry(const PyramidT<P>& pyr,
   const int nthreads = blockDim.x * blockDim.y;
   const int nx = out_size * sampling;
   for (int k = tid; k < sampling + nx; k += nthreads) {
+    float start, bin;
     if (k < sampling) {
-      const float ys0 = __fadd_rn(__fdiv_rn(y1, stride), -0.5f);
-      const float ye0 = __fadd_rn(__fdiv_rn(y2, stride), -0.5f);
-      const float bin = __fdiv_rn(ye0 - ys0, static_cast<float>(out_size));
-      ys[k] = axis_sample(ys0, bin, i, k, sampling, h);
+      axis_span(y1, y2, stride, out_size, &start, &bin);
+      ys[k] = axis_sample(start, bin, i, k, sampling, h);
     } else {
       const int q = k - sampling;  // j * sampling + sx
-      const float xs0 = __fadd_rn(__fdiv_rn(x1, stride), -0.5f);
-      const float xe0 = __fadd_rn(__fdiv_rn(x2, stride), -0.5f);
-      const float bin = __fdiv_rn(xe0 - xs0, static_cast<float>(out_size));
-      xs[q] = axis_sample(xs0, bin, q / sampling, q % sampling, sampling, w);
+      axis_span(x1, x2, stride, out_size, &start, &bin);
+      xs[q] = axis_sample(start, bin, q / sampling, q % sampling, sampling,
+                          w);
     }
   }
   return lvl;
@@ -198,8 +207,8 @@ struct Vec<__nv_bfloat16, 8> {
   }
 };
 
-// Threads of a block: x over channel vectors (at most 64), y over the bin
-// columns of the row; one block per (slot, RoI, bin row).
+// The forward's threads: x over channel vectors (at most 64), y over the
+// bin columns of the row; one block per (slot, RoI, bin row).
 inline dim3 row_block(int channels, int vec, int out_size) {
   const int nvec = channels / vec;
   return dim3(nvec < 64 ? nvec : 64, out_size);

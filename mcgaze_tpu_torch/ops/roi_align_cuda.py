@@ -81,11 +81,14 @@ class RoIAlignFPNFunction(torch.autograd.Function):
         return (None, None, None, *grads)
 
 
-def _signature(lib, name):
+def _signature(lib, name, n_ptrs, n_ints):
+    """The C interface: the pyramid's 4 pointers, 8 sizes and 4 strides,
+    levels and frames, then n_ptrs pointers and n_ints ints, then
+    finest_scale, out_size, sampling and the stream."""
     fn = getattr(lib, name)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = ([p] * 4 + [i] * 8 + [f] * 4 + [i, i] + [p, p, p]
-                   + [i] * 5 + [f, i, i, p])
+    fn.argtypes = ([p] * 4 + [i] * 8 + [f] * 4 + [i, i] + [p] * n_ptrs
+                   + [i] * n_ints + [f, i, i, p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -181,7 +184,7 @@ def launch_roi_align_fpn(feats, rois, frame_idx=None, out_size=7,
                       device=rois.device)
     vec = _vec(c, feats[0].element_size(), feats + [out])
     lib = _native.load('roi_align_fpn')
-    fn = _signature(lib, 'mcg_roi_align_fpn_fwd')
+    fn = _signature(lib, 'mcg_roi_align_fpn_fwd', 3, 5)
     ptrs, hw, strides_f = _level_args(shapes, strides,
                                       [f.data_ptr() for f in feats])
     with torch.cuda.device(rois.device):
@@ -195,6 +198,20 @@ def launch_roi_align_fpn(feats, rois, frame_idx=None, out_size=7,
     return out
 
 
+def frame_slots(frame_idx: torch.Tensor, num_frames: int) -> tuple:
+    """The frame -> slots inverse of a slot -> frame map, built on
+    frame_idx's device without a host synchronisation (a stable sort and a
+    search): (offsets (U + 1,) int32, slots (N,) int32). Frame f's slots,
+    ascending, are slots[offsets[f]:offsets[f + 1]]; a slot mapped outside
+    [0, U) is in no frame's range, and a frame no slot maps to has an
+    empty one."""
+    keys, order = torch.sort(frame_idx, stable=True)
+    bounds = torch.arange(num_frames + 1, dtype=keys.dtype,
+                          device=keys.device)
+    offsets = torch.searchsorted(keys, bounds, out_int32=True)
+    return offsets, order.to(torch.int32)
+
+
 def launch_roi_align_fpn_bwd(g, rois, frame_idx, level_shapes, out_size=7,
                              sampling_ratio=2, strides=(4, 8, 16, 32),
                              finest_scale=56.0) -> tuple:
@@ -203,8 +220,11 @@ def launch_roi_align_fpn_bwd(g, rois, frame_idx, level_shapes, out_size=7,
     Returns the L feature gradients in g's dtype, launched on the current
     stream; no synchronisation.
 
-    The terms are added with f32 atomics into one zeroed f32 buffer that
-    holds every level; in f32 it is the result, in bf16 it is cast once."""
+    The gradients are views of one `torch.empty` that the kernel fills
+    cell by cell, zeros included, each cell summed in f32 in a fixed order
+    and stored once: no memset, no atomics, no f32 buffer, and the same
+    bits on every launch. In the frame_idx form the kernel reads each
+    frame's slots through `frame_slots`."""
     global bwd_launch_count
     what = 'roi_align_fpn backward kernel'
     level_shapes = [tuple(int(d) for d in s) for s in level_shapes]
@@ -213,24 +233,26 @@ def launch_roi_align_fpn_bwd(g, rois, frame_idx, level_shapes, out_size=7,
     if tuple(g.shape) != (n, r, out_size, out_size, c):
         raise ValueError(f'{what}: g {tuple(g.shape)}, needs '
                          f'{(n, r, out_size, out_size, c)}')
+    if u > 65535:
+        raise ValueError(f'{what}: {u} frames; it takes at most 65535')
 
     sizes = [s[0] * s[1] * s[2] * s[3] for s in level_shapes]
     offsets = [sum(sizes[:k]) for k in range(len(sizes))]
-    buf = torch.zeros(sum(sizes), dtype=torch.float32, device=g.device)
-    vec = _vec(c, g.element_size(), [g])
+    out = torch.empty(sum(sizes), dtype=g.dtype, device=g.device)
+    levels = [out[o:o + sz] for o, sz in zip(offsets, sizes)]
+    vec = _vec(c, g.element_size(), [g] + levels)
+    inverse = (None, None) if frame_idx is None else frame_slots(frame_idx, u)
     lib = _native.load('roi_align_fpn_bwd')
-    fn = _signature(lib, 'mcg_roi_align_fpn_bwd')
-    ptrs, hw, strides_f = _level_args(
-        level_shapes, strides, [buf.data_ptr() + 4 * o for o in offsets])
+    fn = _signature(lib, 'mcg_roi_align_fpn_bwd', 4, 4)
+    ptrs, hw, strides_f = _level_args(level_shapes, strides,
+                                      [v.data_ptr() for v in levels])
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
         err = fn(*ptrs, *hw, *strides_f, len(level_shapes), u,
                  rois.data_ptr(),
-                 None if frame_idx is None else frame_idx.data_ptr(),
-                 g.data_ptr(), n, r, c, _DTYPES[g.dtype], vec,
+                 *(None if t is None else t.data_ptr() for t in inverse),
+                 g.data_ptr(), r, c, _DTYPES[g.dtype], vec,
                  float(finest_scale), out_size, sampling_ratio, stream)
     _native.check(lib, err, 'roi_align_fpn backward kernel launch')
-    out = buf.to(g.dtype)
     bwd_launch_count += 1
-    return tuple(out[o:o + sz].view(shape)
-                 for o, sz, shape in zip(offsets, sizes, level_shapes))
+    return tuple(v.view(shape) for v, shape in zip(levels, level_shapes))

@@ -12,7 +12,10 @@ and out projections included.
     attention over a clip's T*Q tokens with logits scaled by 1/sqrt(hd)
     and a -1e9 additive mask.
   * `launch_stqi_attention` runs the hand-written kernel
-    csrc/stqi_attention.cu, one CTA per clip; `launch_count` counts its
+    csrc/stqi_attention.cu: per clip a thread-block cluster of G CTAs that
+    split the heads (`cluster_plan`: 4 CTAs of 2 heads at the gaze shape)
+    and exchange attention outputs, LayerNorm statistics and normalised
+    rows through distributed shared memory; `launch_count` counts its
     launches. Forward only, like the JAX kernel (it has no vjp).
   * `fused_stqi_attention` is what the head calls: CPU tensors go to the
     plain version, CUDA tensors to the kernel. There is no fallback from
@@ -32,9 +35,13 @@ from . import _native
 launch_count = 0
 
 LN_EPS = 1e-5
-_THREADS, _GROUP, _MAX_COLS = 256, 24, 3      # csrc/stqi_attention.cu
-_MAX_SMEM = 232448                            # a block's limit on sm_90
-_MAX_HEAD_DIM = 32                            # one lane per channel of a head
+_MAX_C = 256                    # csrc/stqi_attention.cu: its limits
+_MAX_TOKENS = 32
+_MAX_HEAD_DIM = 32              # one lane per channel of a head
+_MAX_CLUSTER = 8                # the portable cluster size
+_NARROW_COLS = 64               # per-CTA channels of the 3-column tile
+_STAGES, _STAGE_FLOATS = 4, 3072   # the weight ring: 4 stages of <= 12 KB
+_MAX_SMEM = 232448              # a block's limit on sm_90
 
 
 def _layer_norm(x, scale, bias, eps=LN_EPS):
@@ -90,18 +97,38 @@ def fused_stqi_attention(query, wqkv, bqkv, wout, bout, ln_scale, ln_bias,
     return launch_stqi_attention(*tensors, clip_length, heads)
 
 
-def smem_bytes(tokens: int, c: int) -> int:
-    """The kernel's shared memory: x, qkv and the attention output in f32,
-    rows padded to its register group of tokens."""
-    rows = -(-tokens // _GROUP) * _GROUP
-    return rows * 5 * c * 4
+def cluster_plan(tokens: int, c: int, heads: int) -> dict:
+    """How the kernel splits a clip of `tokens` tokens: `cluster` CTAs (G,
+    a divisor of `heads` up to 8 whose C/G is a multiple of 4: the smallest
+    with C/G <= 64, else the largest), each with heads_per_cta heads and
+    cols_per_cta = C/G channels; token rows padded to a multiple of 8;
+    `kc` weight rows per ring stage; and the shared memory of a CTA: the
+    tokens, its qkv (then the gathered attention output), its own
+    attention output and normalised columns, the LN statistics and the
+    weight ring (csrc/stqi_attention.cu::smem_floats)."""
+    sizes = [g for g in range(1, min(heads, _MAX_CLUSTER) + 1)
+             if heads % g == 0 and (c // g) % 4 == 0]
+    narrow = [g for g in sizes if c // g <= _NARROW_COLS]
+    cluster = min(narrow) if narrow else max(sizes)
+    cpc = c // cluster
+    ncols = 3 * cpc
+    rows = -(-tokens // 8) * 8
+    kc = max(4, min(16, _STAGE_FLOATS // ncols // 4 * 4))
+    floats = (rows * c + rows * max(ncols + 1, c) + 2 * rows * cpc + 4 * 32
+              + _STAGES * kc * ncols)
+    return dict(cluster=cluster, heads_per_cta=heads // cluster,
+                cols_per_cta=cpc, rows=rows, kc=kc, stages=_STAGES,
+                smem_bytes=4 * floats)
 
 
 def launch_stqi_attention(query, wqkv, bqkv, wout, bout, ln_scale, ln_bias,
                           clip_length: int, heads: int = 8) -> torch.Tensor:
-    """The kernel alone: f32 contiguous CUDA tensors, one CTA per clip on
-    the current stream; no synchronisation. Refuses a query that needs a
-    gradient while grad mode is on (the kernel has no backward)."""
+    """The kernel alone: f32 contiguous CUDA tensors, a cluster of
+    `cluster_plan` CTAs per clip on the current stream; no
+    synchronisation. Refuses a query that needs a gradient while grad mode
+    is on (the kernel has no backward). A tensor
+    not 16-byte aligned (a view into another) is copied first: the kernel
+    reads in 16-byte vectors."""
     global launch_count
     what = 'stqi_attention kernel'
     if torch.is_grad_enabled() and any(
@@ -120,14 +147,14 @@ def launch_stqi_attention(query, wqkv, bqkv, wout, bout, ln_scale, ln_bias,
     if heads <= 0 or c % heads or c // heads > _MAX_HEAD_DIM:
         raise ValueError(f'{what}: C={c} over {heads} heads; it takes heads '
                          f'of at most {_MAX_HEAD_DIM} channels')
-    if c % 4 or c > _THREADS or nq * t > 32:
+    if c % 4 or c > _MAX_C or nq * t > _MAX_TOKENS:
         raise ValueError(f'{what}: C={c}, {nq * t} tokens per clip; it takes '
-                         f'C a multiple of 4 up to {_THREADS} and at most 32 '
-                         'tokens')
-    smem = smem_bytes(nq * t, c)
-    if smem > _MAX_SMEM:
-        raise ValueError(f'{what}: {smem} bytes of shared memory, above '
-                         f'{_MAX_SMEM}')
+                         f'C a multiple of 4 up to {_MAX_C} and at most '
+                         f'{_MAX_TOKENS} tokens')
+    plan = cluster_plan(nq * t, c, heads)
+    if plan['smem_bytes'] > _MAX_SMEM:
+        raise ValueError(f'{what}: {plan["smem_bytes"]} bytes of shared '
+                         f'memory a CTA, above {_MAX_SMEM}')
     shapes = dict(wqkv=(c, 3 * c), bqkv=(3 * c,), wout=(c, c), bout=(c,),
                   ln_scale=(c,), ln_bias=(c,))
     weights = (wqkv, bqkv, wout, bout, ln_scale, ln_bias)
@@ -146,17 +173,20 @@ def launch_stqi_attention(query, wqkv, bqkv, wout, bout, ln_scale, ln_bias,
             raise ValueError(f'{what}: non-contiguous input '
                              f'{tuple(x.shape)} stride {x.stride()}')
 
+    query, *weights = (x if x.data_ptr() % 16 == 0 else x.clone()
+                       for x in (query, *weights))
     out = torch.empty_like(query)
     lib = _native.load('stqi_attention')
     fn = lib.mcg_stqi_attention
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 8 + [i] * 5 + [ctypes.c_float, p]
+    fn.argtypes = [p] * 8 + [i] * 8 + [ctypes.c_float, p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(query.device):
         stream = torch.cuda.current_stream(query.device).cuda_stream
         err = fn(query.data_ptr(), *(w.data_ptr() for w in weights),
-                 out.data_ptr(), n // t, t, nq, c, heads,
-                 float((c // heads) ** -0.5), stream)
+                 out.data_ptr(), n // t, t, nq, c, heads, plan['cluster'],
+                 plan['kc'], plan['rows'], float((c // heads) ** -0.5),
+                 stream)
     _native.check(lib, err, 'stqi_attention kernel launch')
     launch_count += 1
     return out

@@ -11,8 +11,12 @@ partial sums bounded by it, in another order); bf16 2e-2 of the output's
 scale (the plain version rounds its weights and its intermediate to bf16,
 the kernel only its output). The backward kernel (K3) is held against the
 plain version's autograd gradient at the same tolerances, scaled by the
-largest |gradient| in f32: its f32 atomics add a cell's terms in an order
-that changes from run to run.
+largest |gradient| in f32 (it sums each cell's terms in another order);
+two of its launches are bitwise equal, and it writes every cell, zeros
+included, whatever memory it is handed.
+
+The inverse slot map K3 reads and K4's cluster plan are plain Python and
+run on the CPU as well.
 
 K5 (fused bottleneck chain) is held against `chain_reference` at 1e-4 of
 the plain output's largest value in f32 (K up to 9*256 summed in another
@@ -171,6 +175,90 @@ def test_roi_align_bwd_kernel_is_the_adjoint(cuda_device, with_frame_idx):
               for f, d in zip(feats, grads))
     scale = out.double().norm().item() * g.double().norm().item()
     assert abs(lhs - rhs) <= 1e-5 * scale, (lhs, rhs, scale)
+
+
+def test_frame_slots_matches_numpy():
+    """The frame -> slots inverse K3 reads in the frame_idx form, on the
+    CPU, against a numpy construction: repeated frames, a frame no slot
+    maps to (3), and slots mapped outside [0, U) (-1 and 7), which no
+    frame lists."""
+    fidx = np.array([2, 0, 7, 2, -1, 0, 2, 4, 1], np.int32)
+    u = 5
+    offsets, slots = roi_align_cuda.frame_slots(torch.from_numpy(fidx), u)
+    assert offsets.dtype == slots.dtype == torch.int32
+    assert offsets.shape == (u + 1,) and slots.shape == fidx.shape
+    offsets, slots = offsets.numpy(), slots.numpy()
+    for f in range(u):
+        np.testing.assert_array_equal(slots[offsets[f]:offsets[f + 1]],
+                                      np.nonzero(fidx == f)[0])
+    assert offsets[3] == offsets[4]
+    listed = slots[offsets[0]:offsets[u]]
+    assert sorted(listed) == sorted(np.nonzero((fidx >= 0) &
+                                               (fidx < u))[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('with_frame_idx', [False, True])
+def test_roi_align_bwd_kernel_is_deterministic(cuda_device, dtype,
+                                               with_frame_idx):
+    """Each cell sums its terms in a fixed order: two launches give the
+    same bits."""
+    feats, rois, fidx = _case(cuda_device, dtype, with_frame_idx)
+    n, r = rois.shape[:2]
+    g = torch.randn(n, r, 7, 7, feats[0].shape[-1], device=cuda_device,
+                    generator=torch.Generator(device=cuda_device)
+                    .manual_seed(1)).to(dtype)
+    shapes = [f.shape for f in feats]
+    a = roi_align_cuda.launch_roi_align_fpn_bwd(g, rois, fidx, shapes)
+    b = roi_align_cuda.launch_roi_align_fpn_bwd(g, rois, fidx, shapes)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert x.dtype == dtype
+        assert torch.equal(x.view(torch.int16 if dtype == torch.bfloat16
+                                  else torch.int32),
+                           y.view(torch.int16 if dtype == torch.bfloat16
+                                  else torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('with_frame_idx', [False, True])
+def test_roi_align_bwd_kernel_writes_every_cell(cuda_device, dtype,
+                                                with_frame_idx):
+    """The output is one torch.empty that the kernel fills: handed a block
+    the caching allocator last held NaN in (its address is checked), it is
+    finite everywhere and exactly 0 on the cells no RoI touches. Those are
+    the cells where the plain f32 gradient of an all-ones cotangent is 0:
+    its terms are all >= 0, so nothing cancels there (a bf16 gradient of a
+    random cotangent can cancel to 0 where two slots add into one frame).
+    In the frame_idx form frame 4 is mapped to by no slot."""
+    feats, rois, fidx = _case(cuda_device, dtype, with_frame_idx)
+    if fidx is not None:
+        fidx[fidx == 4] = 0
+    n, r = rois.shape[:2]
+    g = torch.randn(n, r, 7, 7, feats[0].shape[-1], device=cuda_device,
+                    generator=torch.Generator(device=cuda_device)
+                    .manual_seed(2)).to(dtype)
+    shapes = [f.shape for f in feats]
+    total = sum(f.numel() for f in feats)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    poison = torch.full((total,), float('nan'), dtype=dtype,
+                        device=cuda_device)
+    poisoned = poison.data_ptr()
+    del poison
+    got = roi_align_cuda.launch_roi_align_fpn_bwd(g, rois, fidx, shapes)
+    torch.cuda.synchronize()
+    assert got[0].data_ptr() == poisoned
+    reach = _grads(tuple(f.float() for f in feats), rois, fidx,
+                   torch.ones(g.shape, device=cuda_device), roi_align_fpn_mm)
+    for a, b in zip(got, reach):
+        assert torch.isfinite(a).all()
+        assert (a[b == 0] == 0).all() and (b >= 0).all()
+    assert any((b > 0).any() for b in reach)
+    if fidx is not None:
+        assert all((a[4] == 0).all() for a in got)
 
 
 # ------------------------------------------------------------ K5 and K4
@@ -367,6 +455,43 @@ def test_fused_stqi_head_matches_unfused_on_card(cuda_device, dtype):
         tol = 2e-5 if dtype == torch.float32 else \
             TOL_BF16 * a.float().abs().max().item()
         assert err <= tol, (err, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('c, heads, cluster', [
+    (96, 3, 3),       # 4 does not divide the heads: 3 CTAs of one head
+    (176, 11, 1),     # no divisor up to 8 leaves <= 64 channels a CTA: one
+])                    # CTA of 176 channels, the kernel's wide tile
+def test_stqi_attention_kernel_other_head_counts(cuda_device, c, heads,
+                                                 cluster):
+    query, weights, t = attention_case(cuda_device, clips=3, c=c, seed=7)
+    assert stqi_attention.cluster_plan(7 * 3, c, heads)['cluster'] == cluster
+    got = stqi_attention.fused_stqi_attention(query, *weights, t,
+                                              heads=heads)
+    torch.cuda.synchronize()
+    ref = stqi_attention.stqi_attention_reference(query, *weights, t,
+                                                  heads=heads)
+    assert (got - ref).abs().max().item() <= 2e-5
+
+
+@pytest.mark.parametrize('tokens, c, heads, plan', [
+    # the gaze shape: 4 CTAs of 2 heads, 21 tokens in 24 rows
+    (21, 256, 8, dict(cluster=4, heads_per_cta=2, cols_per_cta=64, rows=24,
+                      kc=16, smem_bytes=111104)),
+    # the most tokens the kernel takes
+    (32, 256, 8, dict(cluster=4, heads_per_cta=2, cols_per_cta=64, rows=32,
+                      kc=16, smem_bytes=131584)),
+    # 3 heads: 4 does not divide them, so 3 CTAs of one head
+    (21, 96, 3, dict(cluster=3, heads_per_cta=1, cols_per_cta=32, rows=24,
+                     kc=16, smem_bytes=49760)),
+])
+def test_stqi_attention_cluster_plan(tokens, c, heads, plan):
+    """K4's split of a clip, on the CPU: the cluster size, each CTA's
+    heads and columns, the padded rows, the ring's rows per stage and the
+    shared memory of a CTA (at the gaze shape two CTAs fit an SM)."""
+    got = stqi_attention.cluster_plan(tokens, c, heads)
+    assert {k: got[k] for k in plan} == plan
+    assert heads % got['cluster'] == 0
 
 
 @pytest.mark.cuda
