@@ -13,7 +13,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
           RoIs, C=256) with boxes that mix levels, run off the image, and
           include an inverted and a zero-area box; and R=100 at 384x640.
           Max abs error against the stated tolerance, kernel and plain ms
-          (CUDA events, L2 flushed before each launch), the bound
+          (CUDA events, L2 flushed before each launch), the bound and the
+          kernel's share of it
   kernel_bwd  the RoIAlign backward kernel (K3) against the plain
           version's autograd gradient, and the adjoint identity
           <K1(F), G> = sum_l <F_l, K3(G)_l> in f64 sums at G = K1(F),
@@ -31,7 +32,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
           gazes; fwd_dedup == fwd and kernel == plain RoIAlign end to end
           with TF32 off; then fwd_dedup timed at 32 clips in bf16
   profile torch.profiler over the timed forward: device time by kernel
-          (K1 must be listed)
+          (K1 must be listed); K1's device time per launch beside the
+          bound of the launches the forward makes (their inputs recorded
+          in one forward), counted only where the profiler recorded every
+          launch and the time is not below the bound
   train   the shipped gaze360 config (R50, 4 stages, 32 clips = 224 frames
           at 224 px, f32, its OptimConfig), seeded random weights and
           synthetic batches, through mcgaze_tpu_torch.tools.train.main for
@@ -140,8 +144,8 @@ def nvidia_smi():
 # ---------------------------------------------------------------- timing
 
 class Timer:
-    """Median device ms of fn over reps, with the L2 cache flushed (a
-    256 MB write) before each launch, as the main path finds it cold."""
+    """Median device ms of fn over reps, with the L2 cache flushed (a 256 MB
+    write) before each launch, as the main path finds it cold."""
 
     def __init__(self, device):
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
@@ -323,7 +327,8 @@ def phase_kernel(device, timer):
             form='frame_idx' if fidx is not None else 'identity',
             u=cs['u'], n=cs['n'], r=cs['r'], max_abs_err=err, tol=tol,
             out_scale=scale, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-            bound_by=b_by, bytes=nbytes, flops=flops, library_ms=None))
+            bound_by=b_by, bound_share=b_ms / k_ms, bytes=nbytes,
+            flops=flops, library_ms=None))
         del feats, got
         torch.cuda.empty_cache()
     emit('kernel', cases=results)
@@ -677,7 +682,8 @@ def phase_train(device):
 
 def profile_rows(fn, reps):
     """torch.profiler over reps calls of fn: [(device ms per call, kernel
-    name, launches per call)] by kernel name, largest first."""
+    name, launches per call, launches recorded in all)] by kernel name,
+    largest first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -692,7 +698,7 @@ def profile_rows(fn, reps):
     host = {ev.key for ev in events
             if getattr(ev, 'device_type', None) == DeviceType.CPU}
     rows = [(ev.self_device_time_total / (1e3 * reps), ev.key,
-             ev.count // reps)
+             ev.count // reps, ev.count)
             for ev in events
             if getattr(ev, 'device_type', None) == DeviceType.CUDA
             and ev.self_device_time_total > 0 and ev.key not in host]
@@ -715,17 +721,48 @@ def phase_train_profile(step, step_ms):
          kernels_per_step=sum(r[2] for r in rows),
          idle_share=(1 - busy / step_ms) if rows else 'not measured',
          top=[dict(ms=round(ms, 4), calls=c, name=k[:80])
-              for ms, k, c in rows[:15]])
+              for ms, k, c, _ in rows[:15]])
+
+
+def k1_launch_bounds(step):
+    """The bound (ms) of each K1 launch one call of step makes: its inputs
+    recorded on the way in (the wrapper is looked up at call time), the
+    launch run as it is."""
+    from mcgaze_tpu_torch.ops import roi_align_cuda
+    launch = roi_align_cuda.launch_roi_align_fpn
+    bounds = []
+
+    def recorded(feats, rois, frame_idx=None, *args, **kw):
+        fidx = None if frame_idx is None else frame_idx.cpu().numpy()
+        nbytes, flops = roi_work(
+            rois.detach().cpu().numpy(), fidx,
+            [tuple(f.shape[1:3]) for f in feats], (4, 8, 16, 32),
+            feats[0].shape[-1], feats[0].element_size())
+        bounds.append(bound(nbytes, flops)[0])
+        return launch(feats, rois, frame_idx, *args, **kw)
+
+    roi_align_cuda.launch_roi_align_fpn = recorded
+    try:
+        with torch.inference_mode():
+            step()
+    finally:
+        roi_align_cuda.launch_roi_align_fpn = launch
+    torch.cuda.synchronize()
+    return bounds
 
 
 def phase_profile(step, layers, timer, phase='profile',
-                  kernels=(('roi_align', 'roi_align_fpn'),)):
+                  kernels=(('roi_align', 'roi_align_fpn'),), k1_bounds=None):
     """Where the K=32 bf16 forward's time goes: host wall clock per
     forward, device time of the layers (CUDA events), and device time by
     kernel from torch.profiler; idle share = 1 - kernel time / wall.
     `kernels`: (key, name substring) pairs reported as <key>_ms_per_forward,
     each a kernel the path launches: one the profiler lists under no such
-    name, or at 0 ms, fails the phase."""
+    name, or at 0 ms, fails the phase. With `k1_bounds` (the bound of each
+    K1 launch of one forward), K1's device time per launch beside their
+    mean, counted only where the profiler recorded as many K1 launches as
+    were made and the time is not below the bound (a profiler that drops
+    events reads low)."""
     walls = []
     for _ in range(6):
         torch.cuda.synchronize()
@@ -736,17 +773,34 @@ def phase_profile(step, layers, timer, phase='profile',
     wall_ms = float(np.median(walls[1:]))
     with torch.inference_mode():
         layer_ms = {k: timer.ms(fn, reps=5) for k, fn in layers.items()}
-    rows = profile_rows(step, 3)
+    from mcgaze_tpu_torch.ops import roi_align_cuda
+    reps = 3
+    made = roi_align_cuda.launch_count
+    rows = profile_rows(step, reps)
+    made = roi_align_cuda.launch_count - made
     busy = sum(r[0] for r in rows)
     per_kernel = {f'{key}_ms_per_forward':
                   sum(r[0] for r in rows if sub in r[1])
                   for key, sub in kernels}
+    k1 = {}
+    if k1_bounds is not None:
+        k1_rows = [r for r in rows if 'roi_align_fpn_kernel' in r[1]]
+        recorded = sum(r[3] for r in k1_rows)
+        per_launch = (sum(r[0] for r in k1_rows) * reps / recorded
+                      if recorded else 0.0)
+        bound_ms = float(np.mean(k1_bounds))
+        counted = recorded == made and per_launch >= bound_ms
+        k1 = dict(k1_launches_made=made, k1_launches_recorded=recorded,
+                  k1_bound_ms_per_launch=bound_ms,
+                  k1_device_ms_per_launch=(per_launch if counted
+                                           else 'not measured'),
+                  k1_profiler_ms_per_launch=per_launch)
     emit(phase, wall_ms_per_forward=wall_ms, layer_ms=layer_ms,
-         kernel_ms_per_forward=busy, **per_kernel,
+         kernel_ms_per_forward=busy, **per_kernel, **k1,
          kernels_per_forward=sum(r[2] for r in rows),
          idle_share=1 - busy / wall_ms,
          top=[dict(ms=round(ms, 4), calls=c, name=k[:80])
-              for ms, k, c in rows[:12]])
+              for ms, k, c, _ in rows[:12]])
     for (key, sub), ms in zip(kernels, per_kernel.values()):
         check(ms > 0, f'{phase}: the profiler lists no device time under '
               f'"{sub}" ({key}), a kernel the path launches')
@@ -1300,7 +1354,8 @@ def main():
     del timer
     torch.cuda.empty_cache()
     eval_launches, step, layers = phase_slice(device, Timer(device))
-    phase_profile(step, layers, Timer(device))
+    phase_profile(step, layers, Timer(device),
+                  k1_bounds=k1_launch_bounds(step))
     del step, layers
     torch.cuda.empty_cache()
     fused_launches, step, layers = phase_slice_fused(device, Timer(device))

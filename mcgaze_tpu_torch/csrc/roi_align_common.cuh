@@ -1,6 +1,6 @@
 // What the FPN RoIAlign forward (roi_align_fpn.cu) and its transpose
-// (roi_align_fpn_bwd.cu) share: the level rule, the sample geometry of one
-// bin row, the pyramid descriptor and the vector loads. Both kernels take
+// (roi_align_fpn_bwd.cu) share: the level rule, the sample geometry of an
+// axis, the pyramid descriptor and the vector loads. Both kernels take
 // them from here, so the forward and the backward cannot drift apart.
 // Each .cu that includes this file is its own shared library (ops/_native.py
 // hashes this header into both libraries' names, so a change rebuilds both).
@@ -116,41 +116,6 @@ __device__ __forceinline__ void axis_span(float a1, float a2, float stride,
   *bin = __fdiv_rn(e0 - s0, static_cast<float>(out_size));
 }
 
-// The routed level and the sample geometry of bin row i of RoI `box`
-// (x1, y1, x2, y2): ys[sy] for the row's `sampling` sample rows, and
-// xs[j * sampling + sx] for every bin column. Every thread of the block
-// takes part; the caller synchronises before reading ys/xs.
-template <typename P>
-__device__ __forceinline__ int row_geometry(const PyramidT<P>& pyr,
-                                            const float* box, int i,
-                                            float finest_scale, int out_size,
-                                            int sampling, Axis* ys, Axis* xs) {
-  const float x1 = box[0];
-  const float y1 = box[1];
-  const float x2 = box[2];
-  const float y2 = box[3];
-  const int lvl = roi_level(x1, y1, x2, y2, pyr.num_levels, finest_scale);
-  const int h = pyr.h[lvl];
-  const int w = pyr.w[lvl];
-  const float stride = pyr.stride[lvl];
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthreads = blockDim.x * blockDim.y;
-  const int nx = out_size * sampling;
-  for (int k = tid; k < sampling + nx; k += nthreads) {
-    float start, bin;
-    if (k < sampling) {
-      axis_span(y1, y2, stride, out_size, &start, &bin);
-      ys[k] = axis_sample(start, bin, i, k, sampling, h);
-    } else {
-      const int q = k - sampling;  // j * sampling + sx
-      axis_span(x1, x2, stride, out_size, &start, &bin);
-      xs[q] = axis_sample(start, bin, q / sampling, q % sampling, sampling,
-                          w);
-    }
-  }
-  return lvl;
-}
-
 template <typename T, int VEC>
 struct Vec;
 
@@ -206,13 +171,6 @@ struct Vec<__nv_bfloat16, 8> {
     *reinterpret_cast<uint4*>(p) = raw;
   }
 };
-
-// The forward's threads: x over channel vectors (at most 64), y over the
-// bin columns of the row; one block per (slot, RoI, bin row).
-inline dim3 row_block(int channels, int vec, int out_size) {
-  const int nvec = channels / vec;
-  return dim3(nvec < 64 ? nvec : 64, out_size);
-}
 
 inline bool valid_config(int num_levels, int out_size, int sampling) {
   return num_levels >= 1 && num_levels <= kMaxLevels && out_size >= 1 &&

@@ -32,13 +32,16 @@ class Conv2d(nn.Conv2d):
 
 
 class LayerNorm(nn.LayerNorm):
+    """flax's `LayerNorm(dtype=...)`: the statistics, scale and bias in
+    f32, y rounded once to the input's dtype. (torch on the card refuses
+    a bf16 input with f32 parameters, so x is cast up first.)"""
+
     def __init__(self, features: int):
         super().__init__(features, eps=LN_EPS)
 
     def forward(self, x):
-        return F.layer_norm(x, self.normalized_shape,
-                            self.weight.to(x.dtype), self.bias.to(x.dtype),
-                            self.eps)
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps).to(x.dtype)
 
 
 def lecun_normal_(w: torch.Tensor, generator: torch.Generator):

@@ -19,6 +19,7 @@ not take; there is no fallback from the card to the plain version.
 from __future__ import annotations
 
 import ctypes
+import struct
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -81,16 +82,32 @@ class RoIAlignFPNFunction(torch.autograd.Function):
         return (None, None, None, *grads)
 
 
-def _signature(lib, name, n_ptrs, n_ints):
-    """The C interface: the pyramid's 4 pointers, 8 sizes and 4 strides,
-    levels and frames, then n_ptrs pointers and n_ints ints, then
-    finest_scale, out_size, sampling and the stream."""
-    fn = getattr(lib, name)
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = ([p] * 4 + [i] * 8 + [f] * 4 + [i, i] + [p] * n_ptrs
-                   + [i] * n_ints + [f, i, i, p])
-    fn.restype = ctypes.c_int
-    return fn
+_bound: dict = {}
+
+
+def _bind(lib_name, fn_name, argtypes):
+    """(library, C function) with its argtypes set once, at first load."""
+    key = (lib_name, fn_name)
+    bound = _bound.get(key)
+    if bound is None:
+        lib = _native.load(lib_name)
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        bound = _bound[key] = (lib, fn)
+    return bound
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# K3's C interface: the pyramid's 4 pointers, 8 sizes and 4 strides, levels
+# and frames, rois, the two inverse-map pointers, g, 4 ints, finest_scale,
+# out_size, sampling and the stream
+_K3_ARGTYPES = ([_P] * 4 + [_I] * 8 + [_F] * 4 + [_I, _I] + [_P] * 4
+                + [_I] * 4 + [_F, _I, _I, _P])
+# K1's C interface is one pointer to its arguments packed as
+# csrc/roi_align_fpn.cu::LaunchArgs (33 fields of 8 bytes), which costs a
+# call a fraction of the marshalling of 33 ctypes arguments
+_K1_ARGS = struct.Struct('=4Q8q4d2q4Q7qd2qQ')
 
 
 def _check(what, level_shapes, dtype, rois, frame_idx, out_size,
@@ -105,15 +122,20 @@ def _check(what, level_shapes, dtype, rois, frame_idx, out_size,
         raise ValueError(f'{what}: out_size {out_size} (max {_MAX_OUT}), '
                          f'sampling_ratio {sampling_ratio} (max '
                          f'{_MAX_SAMPLING})')
-    for t in tensors + [rois] + ([] if frame_idx is None else [frame_idx]):
+    device = rois.device
+    for t in (*tensors, rois, frame_idx):
+        if t is None or (t.device == device and t.is_contiguous()):
+            continue
         if not t.is_cuda:
             raise RuntimeError(f'{what}: a {t.device} tensor given; the '
                                'kernel runs on a CUDA device only')
-        if t.device != rois.device:
+        if t.device != device:
             raise ValueError(f'{what}: inputs on several devices')
-        if not t.is_contiguous():
-            raise ValueError(f'{what}: non-contiguous input '
-                             f'{tuple(t.shape)} stride {t.stride()}')
+        raise ValueError(f'{what}: non-contiguous input '
+                         f'{tuple(t.shape)} stride {t.stride()}')
+    if device.type != 'cuda':
+        raise RuntimeError(f'{what}: a {device} tensor given; the kernel '
+                           'runs on a CUDA device only')
     if dtype not in _DTYPES:
         raise TypeError(f'{what}: dtype {dtype}; it takes float32 or '
                         'bfloat16, the same on every level')
@@ -141,31 +163,89 @@ def _check(what, level_shapes, dtype, rois, frame_idx, out_size,
 
 
 def _level_args(level_shapes, strides, ptrs):
-    """The C interface's per-level arguments, padded to _MAX_LEVELS."""
+    """The C interface's per-level arguments (pointers, H and W, strides),
+    padded to _MAX_LEVELS with null pointers."""
     pad = _MAX_LEVELS - len(level_shapes)
     hw = []
     for s in level_shapes:
         hw += [s[1], s[2]]
-    return (list(ptrs) + [None] * pad, hw + [0, 0] * pad,
+    return (list(ptrs) + [0] * pad, hw + [0, 0] * pad,
             [float(s) for s in strides] + [1.0] * pad)
 
 
-def _vec(c, itemsize, tensors):
+def _vec(c, itemsize, ptrs):
     """16 bytes of channels per load where C and every pointer allow it."""
     per_load = 16 // itemsize
-    return per_load if (c % per_load == 0 and all(
-        t.data_ptr() % 16 == 0 for t in tensors)) else 1
+    return per_load if c % per_load == 0 and not any(
+        p % 16 for p in ptrs) else 1
+
+
+_limits: dict = {}
+
+
+def device_limits(device: torch.device) -> tuple:
+    """(SMs, opt-in shared memory of a block, bytes a K1 block needs beside
+    its ring) of a CUDA device, read from the CUDA runtime once."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    lim = _limits.get(index)
+    if lim is None:
+        lib = _native.load('roi_align_fpn')
+        fn = lib.mcg_roi_align_fpn_limits
+        fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+        fn.restype = ctypes.c_int
+        vals = [ctypes.c_int() for _ in range(3)]
+        _native.check(lib, fn(index, *vals), 'roi_align_fpn limits')
+        lim = _limits[index] = tuple(v.value for v in vals)
+    return lim
+
+
+_work_buffers: dict = {}
+
+
+def _work(device, stream) -> int:
+    """K1's RoI counter on this stream: two int32 zeros, which every launch
+    leaves at zero again (the last block out resets them), so launches on
+    one stream share them and launches on two streams never do."""
+    key = (device.index, stream.cuda_stream)
+    buf = _work_buffers.get(key)
+    if buf is None:
+        with torch.cuda.stream(stream):
+            buf = _work_buffers[key] = torch.zeros(2, dtype=torch.int32,
+                                                   device=device)
+    return buf.data_ptr()
+
+
+def ring_plan(smem_block: int, side_bytes: int) -> tuple:
+    """(ring bytes, the most one chunk's footprint may take) of a K1 block:
+    its opt-in shared memory less what the block keeps beside the ring,
+    and half of that (the kernel's rule), both rounded down to 128 bytes.
+    One such block fills an SM."""
+    ring = (smem_block - side_bytes) // 128 * 128
+    if ring // 2 < 128:
+        raise ValueError(f'roi_align_fpn kernel: a ring of {ring} bytes '
+                         'holds no chunk')
+    return ring, ring // 2 // 128 * 128
+
+
+def persistent_grid(units: int, sms: int) -> int:
+    """K1's grid: one block per SM (its ring takes the SM's shared
+    memory), never more blocks than RoIs."""
+    return max(1, min(units, sms))
 
 
 def launch_roi_align_fpn(feats, rois, frame_idx=None, out_size=7,
                          sampling_ratio=2, strides=(4, 8, 16, 32),
-                         finest_scale=56.0) -> torch.Tensor:
+                         finest_scale=56.0, *,
+                         _ring_bytes: int | None = None) -> torch.Tensor:
     """The forward kernel alone: CUDA tensors only, checked, launched on
     the current stream; no synchronisation. It builds no autograd graph,
     so it refuses features that need a gradient while grad mode is on:
-    that path goes through roi_align_fpn (RoIAlignFPNFunction)."""
+    that path goes through roi_align_fpn (RoIAlignFPNFunction).
+    `_ring_bytes` (tests only) shrinks the block's ring below what its
+    shared memory holds, which cuts RoIs into smaller chunks; the output
+    does not depend on it."""
     global launch_count
-    feats = list(feats)
     what = 'roi_align_fpn kernel'
     if torch.is_grad_enabled() and any(f.requires_grad for f in feats):
         raise RuntimeError(f'{what}: features that need a gradient; call '
@@ -176,23 +256,38 @@ def launch_roi_align_fpn(feats, rois, frame_idx=None, out_size=7,
         raise TypeError(f'{what}: feats dtypes {[f.dtype for f in feats]}; '
                         'it takes float32 or bfloat16, the same on every '
                         'level')
-    shapes = [tuple(f.shape) for f in feats]
+    shapes = [f.shape for f in feats]
     u, c, n, r = _check(what, shapes, dtype, rois, frame_idx, out_size,
                         sampling_ratio, strides, feats)
+    if any(s[1] * s[2] * c >= 2 ** 31 for s in shapes):
+        raise ValueError(f'{what}: a level of {shapes} holds 2**31 '
+                         'elements or more in one frame')
 
+    device = rois.device
     out = torch.empty((n, r, out_size, out_size, c), dtype=dtype,
-                      device=rois.device)
-    vec = _vec(c, feats[0].element_size(), feats + [out])
-    lib = _native.load('roi_align_fpn')
-    fn = _signature(lib, 'mcg_roi_align_fpn_fwd', 3, 5)
-    ptrs, hw, strides_f = _level_args(shapes, strides,
-                                      [f.data_ptr() for f in feats])
-    with torch.cuda.device(rois.device):
-        stream = torch.cuda.current_stream(rois.device).cuda_stream
-        err = fn(*ptrs, *hw, *strides_f, len(feats), u, rois.data_ptr(),
-                 None if frame_idx is None else frame_idx.data_ptr(),
-                 out.data_ptr(), n, r, c, _DTYPES[dtype], vec,
-                 float(finest_scale), out_size, sampling_ratio, stream)
+                      device=device)
+    ptrs = [f.data_ptr() for f in feats]
+    optr = out.data_ptr()
+    vec = _vec(c, out.element_size(), (*ptrs, optr))
+    lib, fn = _bind('roi_align_fpn', 'mcg_roi_align_fpn_fwd',
+                    [ctypes.c_char_p])
+    sms, smem_block, side_bytes = device_limits(device)
+    ring = ring_plan(smem_block, side_bytes)[0]
+    if _ring_bytes is not None:
+        ring = min(ring, _ring_bytes)
+    stream = torch.cuda.current_stream(device)
+    level_ptrs, hw, strides_f = _level_args(shapes, strides, ptrs)
+    args = _K1_ARGS.pack(
+        *level_ptrs, *hw, *strides_f, len(shapes), u, rois.data_ptr(),
+        0 if frame_idx is None else frame_idx.data_ptr(), optr,
+        _work(device, stream), n, r, c, _DTYPES[dtype], vec,
+        persistent_grid(n * r, sms), ring, finest_scale, out_size,
+        sampling_ratio, stream.cuda_stream)
+    if device.index == torch.cuda.current_device():
+        err = fn(args)
+    else:
+        with torch.cuda.device(device):
+            err = fn(args)
     _native.check(lib, err, 'roi_align_fpn kernel launch')
     launch_count += 1
     return out
@@ -240,10 +335,10 @@ def launch_roi_align_fpn_bwd(g, rois, frame_idx, level_shapes, out_size=7,
     offsets = [sum(sizes[:k]) for k in range(len(sizes))]
     out = torch.empty(sum(sizes), dtype=g.dtype, device=g.device)
     levels = [out[o:o + sz] for o, sz in zip(offsets, sizes)]
-    vec = _vec(c, g.element_size(), [g] + levels)
+    vec = _vec(c, g.element_size(), [t.data_ptr() for t in [g] + levels])
     inverse = (None, None) if frame_idx is None else frame_slots(frame_idx, u)
-    lib = _native.load('roi_align_fpn_bwd')
-    fn = _signature(lib, 'mcg_roi_align_fpn_bwd', 4, 4)
+    lib, fn = _bind('roi_align_fpn_bwd', 'mcg_roi_align_fpn_bwd',
+                    _K3_ARGTYPES)
     ptrs, hw, strides_f = _level_args(level_shapes, strides,
                                       [v.data_ptr() for v in levels])
     with torch.cuda.device(g.device):

@@ -128,6 +128,170 @@ def test_roi_align_kernel_refuses_what_it_does_not_take(cuda_device):
             tuple(f.requires_grad_() for f in feats), rois, fidx)
 
 
+def _check_k1(feats, rois, fidx):
+    """K1 against the plain version at the file's tolerances; returns the
+    kernel's output."""
+    got = roi_align_cuda.launch_roi_align_fpn(feats, rois, fidx)
+    torch.cuda.synchronize()
+    ref = roi_align_fpn_mm(feats, rois, fidx)
+    assert torch.isfinite(got).all()
+    err = (got.float() - ref.float()).abs().max().item()
+    if feats[0].dtype == torch.float32:
+        assert err <= TOL_F32 * max(f.abs().max().item() for f in feats), err
+    else:
+        assert err <= TOL_BF16 * ref.float().abs().max().item(), err
+    return got
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _footprint_bytes(box, img, c, itemsize, strides=(4, 8, 16, 32)):
+    """Bytes of the cells a box's valid samples span on its level: rows x
+    columns between the outermost corners (the whole RoI as one chunk)."""
+    x1, y1, x2, y2 = box
+    v = np.sqrt(max((x2 - x1) * (y2 - y1), 0.0)) / 56.0 + 1e-6
+    stride = strides[int(sum(v >= 2.0 ** k for k in (1, 2, 3)))]
+    spans = []
+    for a1, a2, size in ((y1, y2, img // stride), (x1, x2, img // stride)):
+        pos = a1 / stride - 0.5 + (np.arange(14) // 2 + (np.arange(14) % 2
+                                                          + 0.5) / 2) * (
+            (a2 - a1) / stride / 7)
+        pos = pos[(pos >= -1) & (pos <= size)]
+        lo = np.minimum(np.floor(np.maximum(pos, 0)), size - 1)
+        spans.append(np.minimum(lo + 1, size - 1).max() - lo.min() + 1)
+    return int(spans[0] * spans[1]) * c * itemsize
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('with_frame_idx', [False, True])
+def test_roi_align_kernel_footprint_beyond_a_chunk(cuda_device, dtype,
+                                                  with_frame_idx):
+    """RoIs whose footprint exceeds one chunk, cut into bands: an
+    elongated box at level 0 (its rows span the whole level), a square box
+    at the top of level 0, and boxes running off the image (negative
+    corner, far edge); C = 256, 256 px. Smaller rings (smaller chunks) give
+    the same bits, down to chunks so small that every RoI reads global
+    memory."""
+    rng = np.random.RandomState(3)
+    img, u = 256, 3
+    feats = tuple(torch.from_numpy(f).to(cuda_device, dtype)
+                  for f in make_pyramid(rng, u, 256, base=img // 4))
+    boxes = np.array([[-40.0, 100.0, 560.0, 116.0],    # 600 x 16, level 0
+                      [60.0, 40.0, 170.0, 150.0],      # 110 x 110, level 0
+                      [-50.0, -40.0, 60.0, 70.0],      # off the top left
+                      [200.0, 180.0, 330.0, 300.0]],   # off the far edge
+                     np.float32)
+    n = 5 if with_frame_idx else u
+    rois = torch.from_numpy(np.tile(boxes[None], (n, 1, 1))).to(cuda_device)
+    fidx = (torch.from_numpy(np.array([2, 0, 1, 2, 0], np.int32)).to(
+        cuda_device) if with_frame_idx else None)
+    _, smem_block, side = roi_align_cuda.device_limits(cuda_device)
+    ring, chunk = roi_align_cuda.ring_plan(smem_block, side)
+    big = [b for b in boxes
+           if _footprint_bytes(b, img, 256, feats[0].element_size()) > chunk]
+    assert len(big) >= 3, 'the boxes fit a chunk: nothing is cut'
+    got = _check_k1(feats, rois, fidx)
+    for smaller in (ring // 3 // 128 * 128, 32768, 8192, 2048):
+        other = roi_align_cuda.launch_roi_align_fpn(feats, rois, fidx,
+                                                    _ring_bytes=smaller)
+        assert torch.equal(_bits(got), _bits(other)), smaller
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_roi_align_kernel_scalar_path(cuda_device, dtype):
+    """C = 62 is a multiple of neither vector width (4 f32, 8 bf16): the
+    kernel reads scalars from global memory."""
+    feats, rois, fidx = _case(cuda_device, dtype, True)
+    feats = tuple(f[..., :62].contiguous() for f in feats)
+    _check_k1(feats, rois, fidx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_roi_align_kernel_other_grid(cuda_device, dtype):
+    """out_size 5, sampling_ratio 3: the body for a sampling count other
+    than the model's 2."""
+    feats, rois, fidx = _case(cuda_device, dtype, True)
+    got = roi_align_cuda.launch_roi_align_fpn(feats, rois, fidx, 5, 3)
+    torch.cuda.synchronize()
+    ref = roi_align_fpn_mm(feats, rois, fidx, 5, 3)
+    assert got.shape == ref.shape == (*rois.shape[:2], 5, 5, 64)
+    err = (got.float() - ref.float()).abs().max().item()
+    if dtype == torch.float32:
+        assert err <= TOL_F32 * max(f.abs().max().item() for f in feats), err
+    else:
+        assert err <= TOL_BF16 * ref.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_roi_align_kernel_r100(cuda_device, dtype):
+    """100 RoIs per slot over all four levels, the query family's shape."""
+    rng = np.random.RandomState(4)
+    feats = tuple(torch.from_numpy(f).to(cuda_device, dtype)
+                  for f in make_pyramid(rng, 3, 256, base=64))
+    rois = mixed_rois(rng, 3, (20, 60, 150, 400, 900) * 20, img=256)
+    _check_k1(feats, torch.from_numpy(rois).to(cuda_device), None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_roi_align_kernel_partial_last_round(cuda_device, dtype):
+    """More RoIs than blocks, not a multiple: the persistent grid's last
+    round leaves blocks without a RoI."""
+    sms = roi_align_cuda.device_limits(cuda_device)[0]
+    units = sms + sms // 2 + 1
+    rng = np.random.RandomState(5)
+    feats = tuple(torch.from_numpy(f).to(cuda_device, dtype)
+                  for f in make_pyramid(rng, units, 64, base=16))
+    rois = mixed_rois(rng, units, (25,), img=64)
+    assert roi_align_cuda.persistent_grid(units, sms) == sms
+    _check_k1(feats, torch.from_numpy(rois).to(cuda_device), None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('with_frame_idx', [False, True])
+def test_roi_align_kernel_is_deterministic(cuda_device, dtype,
+                                           with_frame_idx):
+    """Each bin is one thread's sum in a fixed order: two launches give
+    the same bits."""
+    feats, rois, fidx = _case(cuda_device, dtype, with_frame_idx)
+    a = roi_align_cuda.launch_roi_align_fpn(feats, rois, fidx)
+    b = roi_align_cuda.launch_roi_align_fpn(feats, rois, fidx)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize('smem_block, side', [
+    (232448, 8432), (232448, 8992), (101376, 8432), (49152, 1000)])
+def test_k1_ring_plan_matches_numpy(smem_block, side):
+    """K1's ring on the CPU: the largest 128-byte multiple that fits the
+    block's shared memory beside what it keeps there, and the largest
+    128-byte multiple within half of it."""
+    ring, chunk = roi_align_cuda.ring_plan(smem_block, side)
+    sizes = np.arange(0, smem_block + 1, 128)
+    assert ring == sizes[sizes + side <= smem_block].max()
+    assert chunk == sizes[sizes * 2 <= ring].max()
+
+
+def test_k1_ring_plan_refuses_what_does_not_fit():
+    with pytest.raises(ValueError, match='holds no chunk'):
+        roi_align_cuda.ring_plan(9216, 8992)
+    with pytest.raises(ValueError, match='holds no chunk'):
+        roi_align_cuda.ring_plan(8432, 8432)
+
+
+def test_k1_persistent_grid_matches_numpy():
+    units = np.array([1, 5, 131, 132, 133, 199, 264, 672, 4400])
+    got = [roi_align_cuda.persistent_grid(int(x), 132) for x in units]
+    np.testing.assert_array_equal(got, np.minimum(units, 132))
+
+
 def _grads(feats, rois, fidx, g, fn):
     leaves = tuple(f.detach().clone().requires_grad_() for f in feats)
     fn(leaves, rois, fidx).backward(g)
