@@ -11,7 +11,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
           card: f32 and bf16, identity and frame_idx forms, at the gaze
           eval shape (224 px, 32 clips: 131 unique frames, 224 slots, 3
           RoIs, C=256) with boxes that mix levels, run off the image, and
-          include an inverted and a zero-area box; and R=100 at 384x640.
+          include an inverted and a zero-area box; R=100 at 384x640; and
+          the l2cs eval shape (448 px, 32 clips, bf16, frame_idx form).
           Max abs error against the stated tolerance, kernel and plain ms
           (CUDA events, L2 flushed before each launch), the bound and the
           kernel's share of it
@@ -78,6 +79,19 @@ Phases, each printing one JSON line (any failure exits non-zero):
           in the forwards, its backward recomputes the plain version; the
           fused backbone's f32 gradients against the plain float64 ones,
           within twice cuDNN's own f32 error plus TOL_E2E
+  cli     the eval entry points on the train phase's ckpt_3.pth, on two
+          fabricated videos (60 and 33 frames) decoded by a .npy stand-in
+          for _decode_video (the machine has no OpenCV, which cv2 and the
+          native loader need): test_gaze360_gaze.main (gaze360 config,
+          full width, bf16, 32 clips per forward, 224 px, no crop) and
+          test.main --eval mae --l2cs (l2cs config, f32, 448 px), each with
+          the launch counters reset before and read after (4 K1 per
+          forward, no K3); results parse, one entry per frame, finite, unit
+          gazes on frames one clip covers; both scorer CLIs on the gaze360
+          results, the first also with --device; the device scorer within
+          1e-3 deg of numpy, exact frame counts; one 448 px chunk in f32,
+          TF32 off, through the kernel against roi_impl='mm' within
+          TOL_E2E; frames/s of each CLI run
 Then the `kernels` line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 
@@ -275,6 +289,15 @@ def bound(nbytes, flops, peak=None):
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
+def e2e_err(x, y):
+    """Forward outputs (boxes, scores, gazes) against a reference's: boxes
+    relative to their largest coordinate (x1 = cx - w/2 of a box thousands
+    of px wide cancels), scores and gazes absolute."""
+    box = ((x[0] - y[0]).abs().max() / y[0].abs().max().clamp_min(1.0))
+    return max(box.item(), (x[1] - y[1]).abs().max().item(),
+               *((x[2][k] - y[2][k]).abs().max().item() for k in y[2]))
+
+
 # ------------------------------------------------------------------ phases
 
 def phase_kernel(device, timer):
@@ -292,6 +315,10 @@ def phase_kernel(device, timer):
                               fidx=sel if form == 'frame_idx' else None))
     cases.append(dict(shape='query_r100', img=(384, 640), u=44, n=44, r=100,
                       dtype=torch.bfloat16, fidx=None))
+    # the l2cs eval setting: 448 px, no crop (level 0 is 112x112)
+    cases.append(dict(shape='l2cs_eval', img=(448, 448),
+                      u=int(sel.max()) + 1, n=len(sel), r=3,
+                      dtype=torch.bfloat16, fidx=sel))
     results = []
     for cs in cases:
         feats = make_pyramid(rng, cs['u'], cs['img'], 256, device,
@@ -514,14 +541,7 @@ def phase_slice(device, timer):
     model.cfg = cfg
     torch.backends.cudnn.allow_tf32 = True
 
-    def err(x, y):
-        """Boxes relative to their largest coordinate (x1 = cx - w/2 of a
-        box thousands of px wide cancels), scores and gazes absolute."""
-        box = ((x[0] - y[0]).abs().max() / y[0].abs().max().clamp_min(1.0))
-        return max(box.item(), (x[1] - y[1]).abs().max().item(),
-                   *((x[2][k] - y[2][k]).abs().max().item() for k in y[2]))
-
-    dedup_err, plain_err = err(a, b), err(a, p)
+    dedup_err, plain_err = e2e_err(a, b), e2e_err(a, p)
     norms = torch.stack([a[2][k].norm(dim=-1) for k in a[2]])
     check((norms - 1).abs().max().item() < 1e-4, 'f32 gazes not unit norm')
     check(dedup_err <= TOL_E2E, f'fwd_dedup != fwd: {dedup_err}')
@@ -616,7 +636,6 @@ def phase_train(device):
               'roi_head.bbox_head.0.ffn.layers.0.0.weight'):
         check(not torch.equal(now[k], init[k]), f'{k} did not move')
     del init, now
-    shutil.rmtree(work_dir, ignore_errors=True)
 
     # kernels vs the plain RoIAlign, one step at 2 clips, f32, TF32 off
     torch.backends.cudnn.allow_tf32 = False
@@ -677,7 +696,8 @@ def phase_train(device):
          step_ms=step_ms, step_ms_all=walls, clips_per_s=clips / step_ms * 1e3,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
          precision='float32, cuDNN TF32 on (card default), matmul TF32 off')
-    return launches, lambda: step_fn(state, batch), step_ms
+    # the checkpoint stays for the cli phase, which removes work_dir
+    return launches, lambda: step_fn(state, batch), step_ms, out['checkpoint']
 
 
 def profile_rows(fn, reps):
@@ -1129,12 +1149,7 @@ def phase_slice_fused(device, timer):
     del plain_dedup
     torch.backends.cudnn.allow_tf32 = True
 
-    def err(x, y):
-        box = ((x[0] - y[0]).abs().max() / y[0].abs().max().clamp_min(1.0))
-        return max(box.item(), (x[1] - y[1]).abs().max().item(),
-                   *((x[2][k] - y[2][k]).abs().max().item() for k in y[2]))
-
-    dedup_err, plain_err = err(a, b), err(a, p)
+    dedup_err, plain_err = e2e_err(a, b), e2e_err(a, p)
     norms = torch.stack([a[2][k].norm(dim=-1) for k in a[2]])
     check((norms - 1).abs().max().item() < 1e-4, 'fused f32 gazes not unit')
     check(dedup_err <= TOL_E2E, f'fused fwd_dedup != fwd: {dedup_err}')
@@ -1323,6 +1338,249 @@ def phase_train_fused(device):
     torch.cuda.empty_cache()
     return launches
 
+
+NPY_DECODE = 'npy stand-in (no OpenCV on this machine)'
+
+
+def npy_decode(self, paths, video_id):
+    """VideoGazeEvaluator._decode_video for frames stored as .npy at the
+    eval scale: the card's machine has no OpenCV, so neither cv2 nor the
+    native loader (which links it) can decode there. The frames go through
+    the driver's own u8 preprocessing, as the native u8 path's do."""
+    from mcgaze_tpu_torch.evaluation.driver import (crop_ratios,
+                                                    preprocess_frames_u8)
+    frames = [np.load(p) for p in paths]
+    imgs, whwh, sfs = preprocess_frames_u8(
+        frames, self.cfg, crop_ratios(self.cfg, len(frames), video_id))
+    self.decoder = NPY_DECODE
+    return imgs, whwh, sfs, len(frames)
+
+
+def write_cli_dataset(root, lengths=(60, 33), seed=7):
+    """Two fabricated videos as .npy frames at 224 and at 448 px, and the
+    annotation JSONs of both layouts (gaze360: one gaze row per video;
+    l2cs: three). Returns {layout: (json path, frames root)}."""
+    rng = np.random.RandomState(seed)
+    videos, rows, rows3 = [], [], []
+    for vid, n in enumerate(lengths, 1):
+        names = [f'{vid:03d}/{f:05d}.npy' for f in range(n)]
+        videos.append(dict(id=vid, width=224, height=224, length=n,
+                           file_names=names))
+        tracks = []
+        for _ in range(3):
+            g = rng.randn(n, 3)
+            g[:, 2] = -np.abs(g[:, 2])
+            tracks.append((g / np.linalg.norm(g, axis=1,
+                                              keepdims=True)).tolist())
+        rows.append(dict(video_id=vid, gaze=tracks[0]))
+        rows3.extend(dict(video_id=vid, gaze=t) for t in tracks)
+    out = {}
+    for layout, size, annotations in (('gaze360', 224, rows),
+                                      ('l2cs', 448, rows3)):
+        frames = os.path.join(root, f'frames_{size}')
+        for v in videos:
+            os.makedirs(os.path.join(frames, f'{v["id"]:03d}'))
+            for name in v['file_names']:
+                np.save(os.path.join(frames, name),
+                        rng.randint(0, 256, (size, size, 3), np.uint8))
+        ann = os.path.join(root, f'test_{layout}.json')
+        with open(ann, 'w') as f:
+            json.dump(dict(videos=[dict(v, width=size, height=size)
+                                   for v in videos],
+                           annotations=annotations), f)
+        out[layout] = (ann, frames + '/')
+    return out
+
+
+def check_results(path, lengths, dtype, clip_len=7, stride=4):
+    """A results file: parses, one entry per frame, finite; fusion and clue
+    gazes unit vectors on the frames one clip covers (stitching averages
+    the others), none longer than unit. Returns the largest |norm - 1|."""
+    from mcgaze_tpu_torch.evaluation.driver import clip_slices
+    with open(path) as f:
+        results = json.load(f)
+    check(len(results) == len(lengths), f'{path}: {len(results)} videos')
+    tol = 2e-2 if dtype == 'bfloat16' else 1e-4
+    worst = 0.0
+    for r, n in zip(results, lengths):
+        covered = np.zeros(n, int)
+        for start, length, _ in clip_slices(n, clip_len, stride):
+            covered[start:start + length] += 1
+        for key in ('fusion_gazes', 'face_gazes', 'eyes_gazes',
+                    'head_gazes', 'face_score', 'eyes_score', 'head_score',
+                    'face_bboxes', 'eyes_bboxes', 'head_bboxes'):
+            check(len(r[key]) == n, f'{path}: {key} has {len(r[key])} '
+                  f'entries for {n} frames')
+        vals = [r[k] for k in r if k.endswith(('_gazes', '_score'))] + [
+            b for k in r if k.endswith('_bboxes') for b in r[k]
+            if b is not None]
+        check(all(np.isfinite(np.asarray(v, np.float64)).all()
+                  for v in vals), f'{path}: non-finite results')
+        for k in ('fusion_gazes', 'face_gazes', 'eyes_gazes', 'head_gazes'):
+            norms = np.linalg.norm(np.asarray(r[k], np.float64), axis=1)
+            check((norms <= 1 + tol).all(), f'{path}: {k} longer than unit')
+            one = np.abs(norms[covered == 1] - 1)
+            worst = max(worst, float(one.max()))
+            check(worst <= tol, f'{path}: {k} not unit ({worst})')
+    return results, worst
+
+
+def phase_cli(device, checkpoint):
+    """The eval entry points at full width, as a user runs them, on the
+    train phase's ckpt_3.pth: test_gaze360_gaze.main (gaze360 config,
+    bf16, 32 clips per forward, 224 px, no crop) and test.main --eval mae
+    --l2cs (l2cs config, f32, 448 px), on two fabricated videos decoded by
+    the .npy stand-in; then both scorer CLIs on the gaze360 results, the
+    first also with --device. K1 launched 4 times per forward of each run,
+    K3 never; results parse, finite, one entry per frame, unit gazes; one
+    448 px chunk in f32 (TF32 off) through the kernel against
+    roi_impl='mm'; the device scorer within 1e-3 deg of numpy with exact
+    frame counts."""
+    import contextlib
+    import io
+    import shutil
+
+    from mcgaze_tpu_torch.evaluation.driver import (VideoGazeEvaluator,
+                                                    clip_slices)
+    from mcgaze_tpu_torch.evaluation.forward import make_eval_forward
+    from mcgaze_tpu_torch.evaluation.mae import gaze_error
+    from mcgaze_tpu_torch.evaluation.mae_device import gaze_error_device
+    from mcgaze_tpu_torch.models.mcgaze import MCGazeModel
+    from mcgaze_tpu_torch.ops import roi_align_cuda
+    from mcgaze_tpu_torch.tools import (calculate_mae_gaze360,
+                                        calculate_mae_l2cs)
+    from mcgaze_tpu_torch.tools import test as test_cli
+    from mcgaze_tpu_torch.tools import test_gaze360_gaze as gaze_cli
+    from mcgaze_tpu_torch.utils.config import load_config
+
+    l2cs_config = os.path.join(ROOT, 'configs', 'multiclue_gaze',
+                               'multiclue_gaze_r50_l2cs.py')
+    root = os.path.join(ROOT, 'work_dirs', 'chip_smoke_cli')
+    shutil.rmtree(root, ignore_errors=True)
+    lengths = (60, 33)
+    data = write_cli_dataset(root, lengths)
+
+    def forwards(clip_batch):
+        return sum(-(-len(clip_slices(n, 7, 4)) // clip_batch)
+                   for n in lengths)
+
+    runs = {}
+    decode = VideoGazeEvaluator._decode_video
+    VideoGazeEvaluator._decode_video = npy_decode
+    try:
+        for name, main, (ann, frames), argv, clip_batch, dtype in (
+                ('eval_cli', gaze_cli.main, data['gaze360'],
+                 [TRAIN_CONFIG, checkpoint, '--out-dir',
+                  os.path.join(root, 'results'), '--dtype', 'bfloat16',
+                  '--clip-batch', '32', '--cfg-options',
+                  'eval_cfg.crop_ratio=None'], 32, 'bfloat16'),
+                ('eval_cli_l2cs', test_cli.main, data['l2cs'],
+                 [l2cs_config, checkpoint, '--eval', 'mae', '--l2cs',
+                  '--out', os.path.join(root, 'results_l2cs.json')], 8,
+                 'float32')):
+            roi_align_cuda.launch_count = 0
+            roi_align_cuda.bwd_launch_count = 0
+            out = main(argv + ['--json', ann, '--root', frames])
+            torch.cuda.synchronize()
+            launches = dict(k1=roi_align_cuda.launch_count,
+                            k3=roi_align_cuda.bwd_launch_count)
+            expected = 4 * forwards(clip_batch)
+            check(launches == dict(k1=expected, k3=0), f'{name} launched '
+                  f'{launches}, expected {expected} K1 (4 per forward) and '
+                  'no K3')
+            check(out['evaluator'].decoder == NPY_DECODE,
+                  f'{name} decoded with {out["evaluator"].decoder}')
+            path = out.get('path') or argv[argv.index('--out') + 1]
+            results, norm_err = check_results(path, lengths, dtype)
+            frames_n = sum(lengths)
+            runs[name] = dict(
+                config=os.path.relpath(argv[0], ROOT), dtype=dtype,
+                clip_batch=clip_batch, forwards=forwards(clip_batch),
+                launches=launches, frames=frames_n, seconds=out['seconds'],
+                frames_per_s=frames_n / out['seconds'],
+                gaze_norm_err=norm_err, metrics=out.get('metrics'),
+                results=path, annotations=ann)
+    finally:
+        VideoGazeEvaluator._decode_video = decode
+
+    # the scorer CLIs on the gaze360 results: plain, on the card, l2cs
+    scorer_lines = {}
+    gaze_res = runs['eval_cli']['results']
+    for key, main, argv in (
+            ('gaze360', calculate_mae_gaze360.main,
+             ['--evalfile', gaze_res, '--anno', data['gaze360'][0]]),
+            ('gaze360_device', calculate_mae_gaze360.main,
+             ['--evalfile', gaze_res, '--anno', data['gaze360'][0],
+              '--device']),
+            ('l2cs', calculate_mae_l2cs.main,
+             ['--evalfile', gaze_res, '--anno', data['l2cs'][0]])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            main(argv)
+        scorer_lines[key] = buf.getvalue().splitlines()
+        check(len(scorer_lines[key]) == 3, f'scorer {key} printed '
+              f'{scorer_lines[key]}')
+
+    # the device scorer against numpy, every bucket, both layouts
+    with open(gaze_res) as f:
+        results = json.load(f)
+    scorer_err = 0.0
+    for layout, smooth, l2cs in (('gaze360', True, False),
+                                 ('gaze360', False, False),
+                                 ('l2cs', True, True)):
+        with open(data[layout][0]) as f:
+            anno = json.load(f)
+        a = gaze_error(results, anno, smooth=smooth, l2cs=l2cs)
+        b = gaze_error_device(results, anno, smooth=smooth, l2cs=l2cs,
+                              device=device)
+        check(a['frames'] == b['frames'] == sum(lengths),
+              f'device scorer frames {b["frames"]} != {a["frames"]}')
+        scorer_err = max(scorer_err, *(abs(a[k] - b[k]) for k in
+                                       ('mae360', 'front90', 'front20')))
+    check(scorer_err <= 1e-3, f'device scorer vs numpy: {scorer_err} deg')
+
+    # one 448 px chunk of the l2cs video, f32, TF32 off: the kernel against
+    # the plain RoIAlign end to end, on the checkpoint's weights
+    cfg = load_config(l2cs_config)
+    model = MCGazeModel(cfg.model)
+    gaze_cli.load_weights(model, checkpoint)
+    model = model.to(device).eval()
+    _, _, fwd_dedup = make_eval_forward(cfg.model, device=device,
+                                        model=model)
+    sel = gaze_sel(k=8)
+    with open(data['l2cs'][0]) as f:
+        video = json.load(f)['videos'][0]
+    u8 = torch.from_numpy(np.stack([
+        np.load(os.path.join(data['l2cs'][1], name))
+        for name in video['file_names'][:int(sel.max()) + 1]])).to(device)
+    whwh = torch.full((u8.shape[0], 4), 448.0, device=device)
+    sel_t = torch.from_numpy(sel).to(device)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a = fwd_dedup(u8, sel_t, whwh, 7)
+    model.cfg = dataclasses.replace(cfg.model, roi_impl='mm')
+    p = fwd_dedup(u8, sel_t, whwh, 7)
+    torch.backends.cudnn.allow_tf32 = True
+    chunk_err = e2e_err(a, p)
+    check(chunk_err <= TOL_E2E, f'448 px chunk, kernel vs plain RoIAlign '
+          f'end to end: {chunk_err}')
+    del model, a, p, u8
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.rmtree(os.path.dirname(checkpoint), ignore_errors=True)
+
+    emit('cli', decode=NPY_DECODE,
+         checkpoint=f'train phase {os.path.basename(checkpoint)}',
+         videos=list(lengths),
+         runs={k: {kk: vv for kk, vv in v.items()
+                   if kk not in ('results', 'annotations')}
+               for k, v in runs.items()},
+         scorer_lines=scorer_lines, device_scorer_max_err_deg=scorer_err,
+         l2cs_chunk_kernel_vs_plain_e2e_err=chunk_err, tol_e2e=TOL_E2E,
+         card=nvidia_smi())
+    return {k: v['launches']['k1'] for k, v in runs.items()}
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this test '
@@ -1365,11 +1623,12 @@ def main():
                            ('k5', 'conv_gemm')))
     del step, layers
     torch.cuda.empty_cache()
-    train_launches, train_step, train_ms = phase_train(device)
+    train_launches, train_step, train_ms, ckpt = phase_train(device)
     phase_train_profile(train_step, train_ms)
     del train_step
     torch.cuda.empty_cache()
     train_fused_launches = phase_train_fused(device)
+    cli_launches = phase_cli(device, ckpt)
 
     # each kernel beside the case of the path that runs it: K1 at the eval
     # shape (bf16, frame_idx), K3 at the training shape (f32, identity), K4
@@ -1407,7 +1666,7 @@ def main():
         line('roi_align_fpn', 'mcgaze_tpu_torch/csrc/roi_align_fpn.cu',
              'mcgaze_tpu/ops/roi_align_pallas.py:424',
              dict(eval=eval_launches, eval_fused=fused_launches['k1'],
-                  train=train_launches['k1']), k1),
+                  train=train_launches['k1'], **cli_launches), k1),
         line('roi_align_fpn_bwd',
              'mcgaze_tpu_torch/csrc/roi_align_fpn_bwd.cu',
              'mcgaze_tpu/ops/roi_align_pallas.py:772',

@@ -11,9 +11,12 @@ mcgaze_tpu/evaluation/driver.py (reference tools/test_gaze360_gaze.py):
   -> per-video dict {video_id, fusion_gazes, {face,eyes,head}_{bboxes,
      gazes,score}} with xywh boxes (zero boxes -> None)
 
-Decoding from image paths uses cv2 (imported when a video is decoded); the
-native C++ loader of the JAX package is not bound yet (ROADMAP Queue 1,
-item 8). Videos run on the forward's one device.
+Decoding from image paths goes through the native C++ loader
+(data/native_loader.py: decode, crop, resize, pad and, for a forward that
+declares accepts_uint8, raw u8 frames) and falls back to cv2 and the
+Python transforms where that library cannot be built; `decoder` records
+which one ran. Videos run on the forward's one device (several devices
+and processes: ROADMAP Queue 1, item 12).
 """
 from __future__ import annotations
 
@@ -143,6 +146,10 @@ class VideoGazeEvaluator:
     def __init__(self, forward_fn: Callable, cfg: EvalConfig = EvalConfig()):
         self.forward = forward_fn
         self.cfg = cfg
+        # the native loader (None: not tried yet; False: cannot be built,
+        # decode with cv2), and which decoder the last video went through
+        self._native = None
+        self.decoder = None
         # cumulative host seconds per phase (decode and device_put run in
         # the prefetch thread, the rest in the caller's)
         self.phase_seconds: dict = {}
@@ -193,18 +200,44 @@ class VideoGazeEvaluator:
         return boxes, scores, gazes
 
     def _decode_video(self, paths: list, video_id: int):
-        """Read, crop, resize, normalise and pad one video's frames with
-        cv2. Returns (imgs, whwh, sfs, num_frames)."""
-        import cv2
-        frames = []
-        for p in paths:
-            img = cv2.imread(p)
-            if img is None:
-                raise FileNotFoundError(p)
-            frames.append(cv2.cvtColor(img, cv2.COLOR_BGR2RGB))
+        """Read, crop, resize, normalise (or, for a forward that declares
+        accepts_uint8, leave u8) and pad one video's frames: in the native
+        C++ thread pool, or with cv2 and the Python transforms where the
+        native library cannot be built. Sets `decoder` to 'native' or
+        'cv2'. Returns (imgs, whwh, sfs, num_frames)."""
+        cfg = self.cfg
+        native = self._native
+        if native is None:
+            from ..data.native_loader import NativeClipLoader
+            try:
+                native = self._native = NativeClipLoader()
+            except (RuntimeError, OSError):
+                native = self._native = False
         f = len(paths)
-        imgs, whwh, sfs = preprocess_frames(
-            frames, self.cfg, crop_ratios(self.cfg, f, video_id))
+        crop = crop_ratios(cfg, f, video_id)
+        if native is False:
+            import cv2
+            frames = []
+            for p in paths:
+                img = cv2.imread(p)
+                if img is None:
+                    raise FileNotFoundError(p)
+                frames.append(cv2.cvtColor(img, cv2.COLOR_BGR2RGB))
+            imgs, whwh, sfs = preprocess_frames(frames, cfg, crop)
+            self.decoder = 'cv2'
+            return imgs, whwh, sfs, f
+        load = (native.load_u8
+                if (cfg.ship_uint8 and native.has_u8
+                    and getattr(self.forward, 'accepts_uint8', False))
+                else native.load)
+        imgs, meta = load(paths, crop, None, cfg.scale, cfg.canvas)
+        new_h = meta[:, 4].astype(np.float32)
+        new_w = meta[:, 5].astype(np.float32)
+        whwh = np.stack([new_w, new_h, new_w, new_h], -1)
+        sfs = np.stack([new_w / meta[:, 3], new_h / meta[:, 2],
+                        new_w / meta[:, 3], new_h / meta[:, 2]],
+                       -1).astype(np.float32)
+        self.decoder = 'native'
         return imgs, whwh, sfs, f
 
     def run_video_from_paths(self, paths: list, video_id: int) -> dict:

@@ -1,5 +1,5 @@
 """Query-interaction and gaze heads, counterpart of
-mcgaze_tpu/models/heads.py (unbatched path).
+mcgaze_tpu/models/heads.py.
 
   * STQIHead: spatial then temporal self-attention through ONE shared
     attention module and ONE shared LayerNorm, DynamicConv instance
@@ -11,9 +11,13 @@ mcgaze_tpu/models/heads.py (unbatched path).
 
 With `fused_attention`, STQIHead runs steps (a)+(b) through
 ops/stqi_attention.py (one kernel launch per stage on a card) on the same
-parameters. Module names follow the reference state dict
-(`attention.attn.in_proj_*`, `ffn.layers.0.0`, `cls_fcs.{3i}`, ...), so a
-reference checkpoint loads as it is. LayerNorm eps is 1e-5 everywhere.
+parameters. With `batched_clues` (ModelConfig.batched_clue_heads), the
+per-clue linear heads of STQIHead and the towers and heads of GazeHead
+run as one batched product over the three clues (`_batched_towers`,
+`_batched_heads`), again on the same parameters. Module names follow the
+reference state dict (`attention.attn.in_proj_*`, `ffn.layers.0.0`,
+`cls_fcs.{3i}`, ...), so a reference checkpoint loads as it is. LayerNorm
+eps is 1e-5 everywhere.
 """
 from __future__ import annotations
 
@@ -53,6 +57,33 @@ class _PackedAttention(nn.Module):
         attn = torch.softmax(logits, dim=-1).to(v.dtype)
         out = torch.matmul(attn, v).transpose(1, 2).reshape(b, s, e)
         return self.out_proj(out)
+
+
+def _batched_towers(x, towers):
+    """x (N, Q, C); towers: Q mlp_towers of equal shape. Each layer is one
+    (Q, C, C') batched product, computed in f32 from operands rounded to
+    x's dtype, then a per-clue f32 LayerNorm and ReLU rounded to x's
+    dtype (the JAX batched path's numerics)."""
+    dtype = x.dtype
+    for li in range(0, len(towers[0]), 3):
+        lin, norm = [t[li] for t in towers], [t[li + 1] for t in towers]
+        kern = torch.stack([m.weight for m in lin]).to(dtype).float()
+        y = torch.einsum('nqc,qdc->nqd', x.float(), kern)
+        y = F.layer_norm(y, y.shape[-1:], eps=norm[0].eps)
+        y = (y * torch.stack([m.weight for m in norm])
+             + torch.stack([m.bias for m in norm]))
+        x = F.relu(y).to(dtype)
+    return x
+
+
+def _batched_heads(x, heads):
+    """x (N, Q, C); heads: Q Linear(C, O). One (Q, C, O) batched product in
+    f32 from operands rounded to x's dtype, rounded to x's dtype, plus the
+    bias in x's dtype."""
+    dtype = x.dtype
+    kern = torch.stack([m.weight for m in heads]).to(dtype).float()
+    bias = torch.stack([m.bias for m in heads]).to(dtype)
+    return torch.einsum('nqc,qoc->nqo', x.float(), kern).to(dtype) + bias
 
 
 class MultiheadAttention(nn.Module):
@@ -125,11 +156,8 @@ class STQIHead(nn.Module):
                  num_cls_fcs=1, num_reg_fcs=3, fused_attention=False,
                  batched_clues=False):
         super().__init__()
-        if batched_clues:
-            raise NotImplementedError(
-                'batched_clue_heads is not ported yet (ROADMAP Queue 1, '
-                'item 10: opt-ins of the JAX package)')
         self.fused_attention = fused_attention
+        self.batched_clues = batched_clues
         self.attention = MultiheadAttention(channels, num_heads)
         self.attention_norm = LayerNorm(channels)
         self.instance_interactive_conv = DynamicConv(channels, feat_channels,
@@ -179,6 +207,12 @@ class STQIHead(nn.Module):
         cls_feat = self.cls_fcs(obj).reshape(n, nq, c)
         reg_feat = self.reg_fcs(obj).reshape(n, nq, c)
         clues = CLUES[:nq]
+        if self.batched_clues:
+            cls_logits = _batched_heads(cls_feat, [
+                getattr(self, f'{clue}_fc_cls') for clue in clues])
+            deltas = _batched_heads(reg_feat, [
+                getattr(self, f'{clue}_fc_reg') for clue in clues])
+            return cls_logits, deltas, obj.reshape(n, nq, c)
         cls_logits = torch.stack(
             [getattr(self, f'{clue}_fc_cls')(cls_feat[:, i])
              for i, clue in enumerate(clues)], dim=1)
@@ -197,10 +231,7 @@ class GazeHead(nn.Module):
 
     def __init__(self, channels=256, gaze_dim=3, batched_clues=False):
         super().__init__()
-        if batched_clues:
-            raise NotImplementedError(
-                'batched_clue_heads is not ported yet (ROADMAP Queue 1, '
-                'item 10: opt-ins of the JAX package)')
+        self.batched_clues = batched_clues
         for clue in CLUES:
             self.add_module(f'gaze_{clue}_fcs', mlp_tower(channels, 2))
             self.add_module(f'gaze_{clue}_confidence', mlp_tower(channels, 2))
@@ -211,6 +242,19 @@ class GazeHead(nn.Module):
 
     def forward(self, obj_feat):
         """obj_feat: (N, 3, C) -> dict of unit gaze vectors (N, 3)."""
+        if self.batched_clues:
+            def part(fmt):
+                return [getattr(self, fmt.format(clue)) for clue in CLUES]
+
+            g = _batched_towers(obj_feat, part('gaze_{}_fcs'))
+            gazes = _batched_heads(g, part('fc_{}'))          # (N, 3, 3)
+            # confidence towers read DETACHED features (gaze_head.py:168)
+            f = _batched_towers(obj_feat.detach(), part('gaze_{}_confidence'))
+            confs = _batched_heads(f, part('fc_{}_confidence'))
+            # (N, Q, 3) -> (N, 9) clue-major == cat([c_i * g_i], -1)
+            fusion = self.fc_gaze((confs * gazes).reshape(-1, 9))
+            return dict(fusion=_unit(fusion), face=_unit(gazes[:, 0]),
+                        eyes=_unit(gazes[:, 1]), head=_unit(gazes[:, 2]))
         gazes, confs = [], []
         for i, clue in enumerate(CLUES):
             g = getattr(self, f'gaze_{clue}_fcs')(obj_feat[:, i])

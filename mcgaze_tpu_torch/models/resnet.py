@@ -13,6 +13,10 @@ stage's stride-1 bottlenecks through ops/fused_bottleneck.py (the CUDA
 chain kernel on a card, its plain version on the CPU), with the BN folded
 into the convolutions at every call: the modules, and so the state dict,
 are those of the plain path. Stride-2 lead-in blocks stay plain.
+
+`s2d_stem` computes the 7x7 stride-2 stem as a 4x4 stride-1 convolution
+on the 2x2 space-to-depth input (the same products; `_s2d_stem`), from
+the same `conv1.weight`. H and W must be even.
 """
 from __future__ import annotations
 
@@ -85,15 +89,12 @@ class ResNet(nn.Module):
     def __init__(self, depth: int = 50, fused_blocks=False,
                  s2d_stem: bool = False):
         super().__init__()
-        if s2d_stem:
-            raise NotImplementedError(
-                's2d_stem is not ported yet (ROADMAP Queue 1, item 10: '
-                'opt-ins of the JAX package)')
         if depth not in RESNET_SPECS:
             raise ValueError(f'bottleneck depth {depth} not in '
                              f'{sorted(RESNET_SPECS)}')
         self.fused_stages = (tuple(range(4)) if fused_blocks is True
                              else tuple(fused_blocks or ()))
+        self.s2d_stem = s2d_stem
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = FrozenBatchNorm(64)
         cin, mid = 64, 64
@@ -107,7 +108,9 @@ class ResNet(nn.Module):
             mid *= 2
 
     def forward(self, x):
-        x = F.relu(self.bn1(self.conv1(x)))
+        x = _s2d_stem(x, self.conv1.weight) if self.s2d_stem \
+            else self.conv1(x)
+        x = F.relu(self.bn1(x))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         outs = []
         for stage in range(4):
@@ -136,3 +139,23 @@ def _fused_chain(x, blocks):
     y = x.permute(0, 2, 3, 1).reshape(n, h * w, c).contiguous()
     y = fused_bottleneck_chain(y, weights, h, w)
     return y.view(n, h, w, -1).permute(0, 3, 1, 2)
+
+
+def _s2d_stem(x, weight):
+    """The stem conv (7x7, stride 2, pad 3) of NCHW x as a 4x4 stride-1
+    conv on the 2x2 space-to-depth input, in x's dtype. Output pixel o
+    reads padded columns 2o..2o+6; grouping them pairwise makes that
+    groups o..o+3, and kernel tap (k, r) of the 4x4 conv is tap 2k+r of
+    the 7x7 one zero-padded to 8x8 (tap 7 is the pad). Channel order of
+    the grouped input and kernel: (row parity, column parity, channel)."""
+    n, c, h, w = x.shape
+    if h % 2 or w % 2:
+        raise ValueError(f's2d stem needs even H and W, got {h}x{w}')
+    o = weight.shape[0]
+    k4 = (F.pad(weight, (0, 1, 0, 1)).reshape(o, c, 4, 2, 4, 2)
+          .permute(0, 3, 5, 1, 2, 4).reshape(o, 4 * c, 4, 4))
+    xp = F.pad(x, (3, 3, 3, 3))
+    hg, wg = (h + 6) // 2, (w + 6) // 2
+    xg = (xp.reshape(n, c, hg, 2, wg, 2).permute(0, 3, 5, 1, 2, 4)
+          .reshape(n, 4 * c, hg, wg))
+    return F.conv2d(xg, k4.to(x.dtype))

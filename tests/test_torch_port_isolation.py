@@ -36,7 +36,10 @@ def test_port_imports_no_jax():
                  'ops.stqi_attention', 'train.loop',
                  'train.criterion', 'train.hooks', 'train.targets',
                  'tools.train', 'utils.config', 'utils.checkpoint',
-                 'data.dataset', 'data.coco_vid'):
+                 'data.dataset', 'data.coco_vid', 'tools.test_gaze360_gaze',
+                 'tools.test', 'tools.calculate_mae_gaze360',
+                 'tools.calculate_mae_l2cs', 'data.native_loader',
+                 'evaluation.mae_device'):
         assert f'mcgaze_tpu_torch.{name}' in walked, name
 
 

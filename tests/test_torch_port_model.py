@@ -206,5 +206,10 @@ def test_entry_points_refuse_missing_card():
 
 @pytest.mark.parametrize('field,value', [('batched_clue_heads', True)])
 def test_unported_options_raise(field, value):
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        MCGazeModel(ModelConfig(**SMALL, **{field: value}))
+    """The options that raised NotImplementedError until they were ported
+    now build, with the plain model's state dict (their outputs are held
+    against the JAX package in tests/test_torch_port_optins.py)."""
+    with torch.device('meta'):
+        model = MCGazeModel(ModelConfig(**SMALL, **{field: value}))
+        plain = MCGazeModel(ModelConfig(**SMALL))
+    assert model.state_dict().keys() == plain.state_dict().keys()

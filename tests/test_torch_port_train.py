@@ -532,7 +532,7 @@ def test_dataset_batches_match_jax(tmp_path):
     kw = dict(ann_file=ann, img_prefix=prefix, clip_length=7,
               scale=(32, 32), canvas=(32, 32), crop_size=0.68,
               flip_ratio=0.5, batch_size=2)
-    ours = Gaze360ClipDataset(DataConfig(**kw), seed=3)
+    ours = Gaze360ClipDataset(DataConfig(**kw), seed=3, use_native=False)
     ref = JDataset(JDataConfig(**kw), seed=3, use_native=False)
     assert ours.index == ref.index
     flips = 0
