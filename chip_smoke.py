@@ -11,8 +11,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
           card: f32 and bf16, identity and frame_idx forms, at the gaze
           eval shape (224 px, 32 clips: 131 unique frames, 224 slots, 3
           RoIs, C=256) with boxes that mix levels, run off the image, and
-          include an inverted and a zero-area box; R=100 at 384x640; and
-          the l2cs eval shape (448 px, 32 clips, bf16, frame_idx form).
+          include an inverted and a zero-area box; R=100 at 384x640; the
+          l2cs eval shape (448 px, 32 clips, bf16, frame_idx form); and
+          the shapes the serving and demo paths give it at 224 px: the
+          micro-batcher's 1- and 8-clip buckets (bf16, identity form),
+          the first chunk of a 33-frame request (bf16) and of the demo's
+          20-frame track (f32), both frame_idx form.
           Max abs error against the stated tolerance, kernel and plain ms
           (CUDA events, L2 flushed before each launch), the bound and the
           kernel's share of it
@@ -92,12 +96,43 @@ Phases, each printing one JSON line (any failure exits non-zero):
           1e-3 deg of numpy, exact frame counts; one 448 px chunk in f32,
           TF32 off, through the kernel against roi_impl='mm' within
           TOL_E2E; frames/s of each CLI run
+  serve   the serving stack on the train phase's ckpt_3.pth (gaze360
+          config, full width, bf16, 224 px, no crop, max_batch 8):
+          package_model -> resolve_package -> the serve CLI's processor;
+          warmup timed per bucket; make_server in a thread on a free
+          localhost port; /ping, /models, 404, 400; then the served
+          traffic with the counters reset before and read after (K1
+          exactly 4 launches per forward: identity form from the batcher,
+          frame_idx form from the video path): a raw-image request equal
+          to process_body in process at 1e-4, a lone and a concurrent
+          round of 8 7-frame JSON requests, a 12 s closed-loop window of 8
+          clients (every response finite with unit gazes, the batcher
+          fusing more than one clip; latency percentiles over all its
+          requests, requests/s over the window), two 33-frame requests
+          equal to run_video. In f32 with TF32 off: a concurrent round,
+          each response against its lone response with roi_impl='mm', and
+          an 8-clip bucket through the batcher against the same bucket
+          through the plain version, within TOL_E2E. Request images are
+          .npy bytes decoded by a stand-in for decode_image_bytes (no
+          OpenCV on this machine)
+  export  export_model.main --selftest at one clip (EXPORT_DTYPE) on the
+          same checkpoint; the saved program loaded back launches K1 once
+          per stage (the mcgaze::roi_align_fpn operator's CUDA kernel);
+          the fused configuration refuses to export
+  demo    HeadDetector at YOLOv5m's width (640 px, seeded random weights)
+          on 8 fabricated 640x480 frames: boxes finite, in the frame, at
+          most max_det; ms per batch of 8, the NMS's kernels per batch;
+          then gaze_demo's gaze step (read_labels -> group_segments ->
+          square_crop -> run_video) on fabricated labels with 224 px
+          crops, 4 K1 launches per forward, unit fused gazes
 Then the `kernels` line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 
 Exits with code 2 and prints nothing on stdout without a CUDA card.
 """
+import collections
 import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -186,6 +221,21 @@ def gaze_sel(k=32, t=7, stride=4):
     """The dedup slot -> frame map of k consecutive clips."""
     return np.concatenate([np.arange(i * stride, i * stride + t)
                            for i in range(k)]).astype(np.int32)
+
+
+def video_sel(frames, clip_batch=8, t=7, stride=4):
+    """The slot -> frame map of the first chunk VideoGazeEvaluator sends
+    a video of `frames` frames to the forward's .dedup: its clips padded
+    to a power of two (at most clip_batch) by repeating the last one,
+    over a window of stride * (k_pad - 1) + t frames. Returns (map,
+    window)."""
+    from mcgaze_tpu_torch.evaluation.driver import clip_slices
+    starts = [s[0] for s in clip_slices(frames, t, stride)][:clip_batch]
+    k_pad = min(clip_batch, 1 << (len(starts) - 1).bit_length())
+    starts += [starts[-1]] * (k_pad - len(starts))
+    return (np.concatenate([np.arange(s - starts[0], s - starts[0] + t)
+                            for s in starts]).astype(np.int32),
+            stride * (k_pad - 1) + t)
 
 
 def make_pyramid(rng, u, img_hw, c, device, dtype):
@@ -319,6 +369,21 @@ def phase_kernel(device, timer):
     cases.append(dict(shape='l2cs_eval', img=(448, 448),
                       u=int(sel.max()) + 1, n=len(sel), r=3,
                       dtype=torch.bfloat16, fidx=sel))
+    # the serving and demo shapes at 224 px: the micro-batcher's identity
+    # form at its smallest and largest bucket (1 and 8 clips, bf16; the
+    # exported program runs the first), and the frame_idx form of the
+    # first chunk of a 33-frame request (bf16) and of the demo's 20-frame
+    # person track (f32)
+    for clips in (1, 8):
+        cases.append(dict(shape=f'serve_clips{clips}', img=(224, 224),
+                          u=7 * clips, n=7 * clips, r=3,
+                          dtype=torch.bfloat16, fidx=None))
+    for shape, frames, dtype in (('serve_video', 33, torch.bfloat16),
+                                 ('demo_video', 20, torch.float32)):
+        vsel, window = video_sel(frames)
+        cases.append(dict(shape=shape, img=(224, 224), u=window,
+                          n=len(vsel), r=3,
+                          dtype=dtype, fidx=vsel))
     results = []
     for cs in cases:
         feats = make_pyramid(rng, cs['u'], cs['img'], 256, device,
@@ -1581,6 +1646,575 @@ def phase_cli(device, checkpoint):
     return {k: v['launches']['k1'] for k, v in runs.items()}
 
 
+# ------------------------------------------- serving, export and the demo
+
+SERVE_DECODE = 'npy stand-in for decode_image_bytes (no OpenCV on this machine)'
+TOL_BF16 = 2e-2   # the slice phase's bf16 tolerance, on O(1) outputs
+
+
+def npy_bytes(frame: np.ndarray) -> bytes:
+    buf = io.BytesIO()
+    np.save(buf, frame)
+    return buf.getvalue()
+
+
+def npy_decode_image(data: bytes) -> np.ndarray:
+    """serving.decode_image_bytes for .npy request bodies: the card's
+    machine has no OpenCV to decode JPEG/PNG. Raises ValueError on a body
+    that is not an HxWx3 u8 array, as the cv2 decoder does."""
+    try:
+        img = np.load(io.BytesIO(data), allow_pickle=False)
+    except (ValueError, OSError, EOFError) as e:
+        raise ValueError('request body is not a decodable image') from e
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f'request body holds a {img.dtype} {img.shape} '
+                         'array, not an RGB image')
+    return img
+
+
+def post(port, path, body=None, ctype=None, method='POST'):
+    """(status, parsed JSON, seconds) of one localhost request."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        f'http://127.0.0.1:{port}{path}', data=body, method=method,
+        headers={'Content-Type': ctype} if ctype else {})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            status, data = resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        status, data = e.code, e.read()
+    return status, json.loads(data), time.perf_counter() - t0
+
+
+def entries_err(a: list, b: list) -> dict:
+    """Two handler-style entry lists (every clue present): the largest
+    bbox error relative to b's largest coordinate, score and gaze errors
+    absolute."""
+    check([e['class_name'] for e in a] == [e['class_name'] for e in b],
+          f'entries {[e["class_name"] for e in a]} vs '
+          f'{[e["class_name"] for e in b]}')
+    err = dict(bbox=0.0, score=0.0, gaze=0.0)
+    for x, y in zip(a, b):
+        if 'bbox' in y:
+            scale = max(float(np.abs(y['bbox']).max()), 1.0)
+            err['bbox'] = max(err['bbox'], float(np.abs(np.subtract(
+                x['bbox'], y['bbox'])).max()) / scale)
+            err['score'] = max(err['score'], abs(x['score'] - y['score']))
+        err['gaze'] = max(err['gaze'], float(np.abs(np.subtract(
+            x['gaze'], y['gaze'])).max()))
+    return err
+
+
+def check_entries(entries: list, tol: float):
+    """Finite boxes and scores, gazes unit within tol."""
+    for e in entries:
+        vals = [e['gaze']] + [e[k] for k in ('bbox', 'score') if k in e]
+        check(all(np.isfinite(np.asarray(v, np.float64)).all()
+                  for v in vals), f'non-finite entry {e}')
+        norm = float(np.linalg.norm(e['gaze']))
+        check(abs(norm - 1) <= tol, f'{e["class_name"]} gaze norm {norm}')
+
+
+def serve_in_thread(proc):
+    """make_server(proc) on a free localhost port, served from a thread.
+    Returns (server, port, thread)."""
+    import threading
+
+    from mcgaze_tpu_torch.evaluation import serving
+    server = serving.make_server(proc, '127.0.0.1', 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return server, server.server_address[1], thread
+
+
+def stop_server(server, thread):
+    server.shutdown()
+    server.server_close()
+    thread.join(30)
+
+
+def concurrent_round(port, bodies, seconds=None):
+    """One client thread per body, started together, each posting its
+    body once, or back to back (closed loop) until `seconds` have passed
+    since the start (its last request starts before then). Returns (per
+    client [(status, response, seconds)], wall seconds from the start
+    until the last response)."""
+    import threading
+    results = [[] for _ in bodies]
+    barrier = threading.Barrier(len(bodies))
+
+    def client(i):
+        barrier.wait()
+        while not results[i] or time.perf_counter() < end:
+            results[i].append(post(port, '/predictions/mcgaze', bodies[i],
+                                   'application/json'))
+
+    ths = [threading.Thread(target=client, args=(i,))
+           for i in range(len(bodies))]
+    t0 = time.perf_counter()
+    end = t0 + (seconds or 0.0)
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join(600)
+        check(not th.is_alive(), 'a client thread hung')
+    wall = time.perf_counter() - t0
+    check(all(results), 'a client got no response')
+    for res in results:
+        for status, resp, _ in res:
+            check(status == 200, f'concurrent: {status} {resp}')
+    return results, wall
+
+
+def clip_err(resp, ref, tol):
+    """A clip response against a reference one: {bbox, score, gaze}
+    largest errors; every entry finite with unit gazes (within tol)."""
+    check(len(resp['frames']) == len(ref['frames']), 'frames in a reply')
+    err = dict(bbox=0.0, score=0.0, gaze=0.0)
+    for a, b in zip(resp['frames'], ref['frames']):
+        check_entries(a, tol)
+        for k, v in entries_err(a, b).items():
+            err[k] = max(err[k], v)
+    return err
+
+
+SERVE_WINDOW_S = 12.0   # the closed-loop window the serving rate is read on
+
+
+def phase_serve(device, checkpoint, opts=(), dtype='bfloat16',
+                window_s=SERVE_WINDOW_S):
+    """The serving stack at full width (shipped gaze360 config: R50, C=256,
+    FFN 2048, 4 stages, `dtype`, 224 px, no crop, max_batch 8) on the
+    train phase's ckpt_3.pth: package_model -> resolve_package -> the
+    serve CLI's processor; warmup, timed per bucket; make_server in a
+    thread on a free localhost port. /ping, /models, 404, 400. The served
+    traffic, with the counters reset before and read after (K1 exactly 4
+    launches per forward): one raw-image request, equal to process_body
+    in process at 1e-4; one lone 7-frame JSON request per client; one
+    round of 8 concurrent clients; then a closed-loop window of
+    `window_s` seconds, 8 client threads posting 7-frame JSON requests
+    back to back (latency percentiles over all its requests, requests/s
+    over the window), the batcher fusing more than one clip, every
+    response finite with unit gazes; two 33-frame requests, each equal to
+    VideoGazeEvaluator.run_video on the same frames. Then, on float32
+    processors of the same package with TF32 off (where the batch
+    composition moves outputs by rounding only): one round of 8
+    concurrent requests, each against its lone response on a processor
+    whose RoIAlign is the plain version (roi_impl='mm'), and one 8-clip
+    bucket through the batcher against the same bucket through the plain
+    version's batcher, each within TOL_E2E. Request images are .npy
+    bytes decoded by npy_decode_image."""
+    import base64
+    import shutil
+
+    from mcgaze_tpu_torch.evaluation import serving
+    from mcgaze_tpu_torch.evaluation.driver import (VideoGazeEvaluator,
+                                                    clip_slices)
+    from mcgaze_tpu_torch.ops import roi_align_cuda
+    from mcgaze_tpu_torch.tools.deployment import (package_model, serve,
+                                                   test_server)
+
+    root = os.path.join(ROOT, 'work_dirs', 'chip_smoke_serve')
+    shutil.rmtree(root, ignore_errors=True)
+    pkg = package_model.main([TRAIN_CONFIG, checkpoint, '--output-folder',
+                              root, '--model-name', 'mcgaze'])
+    check(serving.resolve_package(pkg)[2] == 'mcgaze', 'package name')
+
+    def processor(dt, *extra):
+        return serve.build_processor(serve.parse_args(
+            [pkg, '--dtype', dt, '--max-batch', '8', '--score-thr', '0.0',
+             '--device', str(device), '--cfg-options',
+             'eval_cfg.crop_ratio=None', *opts, *extra]))
+
+    decode = serving.decode_image_bytes
+    serving.decode_image_bytes = npy_decode_image
+    proc = processor(dtype)
+    h, w = proc.eval_cfg.canvas
+    rng = np.random.RandomState(11)
+
+    def frames(n):
+        return [rng.randint(0, 256, (h, w, 3), np.uint8) for _ in range(n)]
+
+    def json_body(fr):
+        return json.dumps({'frames': [base64.b64encode(npy_bytes(f)).decode()
+                                      for f in fr]}).encode()
+
+    clients = 8
+    bodies = [json_body(frames(7)) for _ in range(clients)]
+    octet = 'application/octet-stream'
+    proc32 = proc_mm = None
+    try:
+        t0 = time.perf_counter()
+        warm = proc.warmup()
+        warm_s = time.perf_counter() - t0
+        warm_batches = len(proc.batcher.batch_sizes)
+        server, port, thread = serve_in_thread(proc)
+        try:
+            check(post(port, '/ping', method='GET')[:2] ==
+                  (200, {'status': 'Healthy'}), '/ping')
+            status, models, _ = post(port, '/models', method='GET')
+            check(status == 200 and models['models'][0]['modelName'] ==
+                  'mcgaze', f'/models: {status} {models}')
+            check(post(port, '/nope', method='GET')[0] == 404, 'GET 404')
+            raw = npy_bytes(frames(1)[0])
+            check(post(port, '/predictions/other', raw, octet)[0] == 404,
+                  'POST 404')
+            status, data, _ = post(port, '/predictions/mcgaze', b'garbage',
+                                   octet)
+            check(status == 400 and 'error' in data, f'400: {status}')
+
+            # the main path: counts from zero, read right after
+            reset_counters()
+            status, lone_raw, first_s = post(port, '/predictions/mcgaze',
+                                             raw, octet)
+            check(status == 200, f'raw request: {status} {lone_raw}')
+            lone_posts = [post(port, '/predictions/mcgaze', b,
+                               'application/json') for b in bodies]
+            check(all(p[0] == 200 for p in lone_posts), 'lone clips')
+            concurrent_round(port, bodies)
+            batches = len(proc.batcher.batch_sizes)
+            results, window_wall = concurrent_round(port, bodies,
+                                                    seconds=window_s)
+            burst = proc.batcher.batch_sizes[batches:]
+            long_body = json_body(frames(33))
+            long_posts = [post(port, '/predictions/mcgaze', long_body,
+                               'application/json') for _ in range(2)]
+            torch.cuda.synchronize()
+            launches = roi_align_cuda.launch_count
+            check(all(p[0] == 200 for p in long_posts), 'long requests')
+            chunks = -(-len(clip_slices(33, proc.eval_cfg.clip_length,
+                                        proc.eval_cfg.stride))
+                       // proc.eval_cfg.clip_batch)
+            forwards = (len(proc.batcher.batch_sizes) - warm_batches +
+                        len(long_posts) * chunks)
+            check(launches == 4 * forwards, f'serve: K1 launched '
+                  f'{launches} times, expected {4 * forwards} (4 per '
+                  f'forward, {forwards} forwards)')
+            check(roi_align_cuda.bwd_launch_count == 0, 'serve launched K3')
+        finally:
+            stop_server(server, thread)
+        local = proc.process_body(raw, octet)
+        raw_err = test_server.assert_same(local, lone_raw, 1e-4)
+        check_entries(lone_raw, TOL_BF16)
+        check(max(burst) > 1, f'the batcher never fused clips: {burst}')
+        for res in results:
+            for _, resp, _ in res:
+                check(len(resp['frames']) == 7, 'frames in a reply')
+                for entries in resp['frames']:
+                    check_entries(entries, TOL_BF16)
+        lat_ms = np.asarray([sec for res in results
+                             for _, _, sec in res]) * 1e3
+        long_frames = [np.load(io.BytesIO(base64.b64decode(f)))
+                       for f in json.loads(long_body)['frames']]
+        ref = VideoGazeEvaluator(proc.evaluator.forward,
+                                 proc.eval_cfg).run_video(long_frames, 0)
+        long_err = 0.0
+        for long_resp in (p[1] for p in long_posts):
+            for key in ref:
+                if key.endswith(('_gazes', '_score')):
+                    long_err = max(long_err, float(np.abs(
+                        np.subtract(long_resp[key], ref[key])).max()))
+                elif key.endswith('_bboxes'):
+                    check([b is None for b in long_resp[key]] ==
+                          [b is None for b in ref[key]], f'{key} None')
+                    pairs = [(a, b) for a, b in zip(long_resp[key], ref[key])
+                             if b is not None]
+                    if pairs:
+                        long_err = max(long_err, float(np.abs(np.subtract(
+                            *zip(*pairs))).max()))
+        check(long_err <= 1e-5, f'long requests vs run_video: {long_err}')
+
+        # float32, TF32 off: the served responses and one 8-clip bucket
+        # against the plain RoIAlign's on the same package
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            proc32 = processor('float32')
+            proc_mm = processor('float32', 'model.roi_impl=mm')
+            lone_mm = [proc_mm.process_body(b, 'application/json')
+                       for b in bodies]
+            reset_counters()
+            server, port, thread = serve_in_thread(proc32)
+            try:
+                results32, _ = concurrent_round(port, bodies)
+            finally:
+                stop_server(server, thread)
+            burst32 = list(proc32.batcher.batch_sizes)
+            clips = [proc32._preprocess(serving.parse_request_body(
+                b, 'application/json')) for b in bodies]
+            imgs = np.concatenate([c[0] for c in clips])
+            whwh = np.concatenate([c[1] for c in clips])
+            bucket = proc32.batcher.run_bucket(imgs, whwh)
+            torch.cuda.synchronize()
+            launches32 = roi_align_cuda.launch_count
+            bucket_mm = proc_mm.batcher.run_bucket(imgs, whwh)
+        finally:
+            torch.backends.cudnn.allow_tf32 = True
+        forwards32 = len(proc32.batcher.batch_sizes)
+        check(launches32 == 4 * forwards32, f'serve f32: K1 launched '
+              f'{launches32} times, expected {4 * forwards32}')
+        check(max(burst32) > 1, f'f32: the batcher never fused: {burst32}')
+        served_mm_err = dict(bbox=0.0, score=0.0, gaze=0.0)
+        for res, ref_mm in zip(results32, lone_mm):
+            for _, resp, _ in res:
+                for k, v in clip_err(resp, ref_mm, 1e-4).items():
+                    served_mm_err[k] = max(served_mm_err[k], v)
+        bucket_mm_err = dict(
+            bbox=float(np.abs(bucket[0] - bucket_mm[0]).max() /
+                       max(np.abs(bucket_mm[0]).max(), 1.0)),
+            score=float(np.abs(bucket[1] - bucket_mm[1]).max()),
+            gaze=max(float(np.abs(bucket[2][n] - bucket_mm[2][n]).max())
+                     for n in bucket_mm[2]))
+        for what, err in (('concurrent responses vs lone plain-RoIAlign '
+                           'ones', served_mm_err),
+                          ('8-clip bucket vs the plain RoIAlign',
+                           bucket_mm_err)):
+            check(max(err.values()) <= TOL_E2E, f'serve f32, TF32 off: '
+                  f'{what}: {err} (tolerance {TOL_E2E})')
+    finally:
+        for p in (proc, proc32, proc_mm):
+            if p is not None:
+                p.close()
+        serving.decode_image_bytes = decode
+        shutil.rmtree(root, ignore_errors=True)
+    del proc, proc32, proc_mm
+    torch.cuda.empty_cache()
+    emit('serve', decode=SERVE_DECODE, checkpoint='train phase ckpt_3.pth',
+         config=f'gaze360, R50 full width, {dtype}, 224 px, no crop',
+         max_batch=8, warmup_s=warm_s, warmup_s_by_bucket=warm,
+         first_request_ms=first_s * 1e3, raw_vs_local_err=raw_err,
+         lone_clip_ms=[p[2] * 1e3 for p in lone_posts],
+         window_s=window_s, window_clients=clients,
+         window_requests=len(lat_ms), window_wall_s=window_wall,
+         window_requests_per_s=len(lat_ms) / window_wall,
+         window_p50_ms=float(np.percentile(lat_ms, 50)),
+         window_p90_ms=float(np.percentile(lat_ms, 90)),
+         window_p99_ms=float(np.percentile(lat_ms, 99)),
+         window_max_ms=float(lat_ms.max()),
+         window_batch_sizes=dict(sorted(collections.Counter(burst)
+                                        .items())),
+         long_request_ms=[p[2] * 1e3 for p in long_posts],
+         long_vs_run_video_err=long_err, forwards=forwards,
+         k1_launches=launches,
+         f32_tf32_off_concurrent_vs_lone_mm_err=served_mm_err,
+         f32_tf32_off_bucket8_vs_mm_err=bucket_mm_err,
+         f32_batch_sizes=burst32, f32_k1_launches=launches32,
+         tol_e2e=TOL_E2E, card=nvidia_smi())
+    return launches
+
+
+EXPORT_DTYPE = 'bfloat16'
+
+
+def phase_export(device, checkpoint, opts=()):
+    """export_model.main --selftest at --batch-clips 1 on the train
+    phase's ckpt_3.pth (full width, EXPORT_DTYPE, 224 px); the saved
+    program loaded back launches K1 once per stage per call; its outputs
+    finite with unit gazes; host ms per call of the loaded program and of
+    the eager forward (median of 5, synchronised); the fused configuration
+    refuses to export."""
+    import shutil
+
+    from mcgaze_tpu_torch.ops import roi_align_cuda
+    from mcgaze_tpu_torch.tools.deployment import export_model
+    from mcgaze_tpu_torch.utils.cfg_options import apply_overrides
+    from mcgaze_tpu_torch.utils.config import load_config
+
+    cfg = apply_overrides(load_config(TRAIN_CONFIG), opts)
+    root = os.path.join(ROOT, 'work_dirs', 'chip_smoke_export')
+    shutil.rmtree(root, ignore_errors=True)
+    out = os.path.join(root, 'mcgaze.pt2')
+    argv = [TRAIN_CONFIG, checkpoint, '--out', out, '--batch-clips', '1',
+            '--dtype', EXPORT_DTYPE, '--device', str(device)]
+    res = export_model.main(argv + ['--selftest'] +
+                            (['--cfg-options', *opts] if opts else []))
+    size_mb = os.path.getsize(out) / 1e6
+    selftest_err = res['selftest_max_abs_err']
+    loaded = torch.export.load(out).module()
+    eager = res['forward']
+    del res
+    n_stages = cfg.model.num_stages
+    h, w = cfg.eval_cfg.canvas
+    imgs, whwh = export_model.example_inputs(cfg.model.clip_length, h, w,
+                                             device, seed=1)
+
+    def ms(fn):
+        times = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(imgs, whwh)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times[1:]))
+
+    with torch.inference_mode():
+        reset_counters()
+        outs = loaded(imgs, whwh)
+        torch.cuda.synchronize()
+        launches = roi_align_cuda.launch_count
+        loaded_ms, eager_ms = ms(loaded), ms(eager)
+    check(launches == n_stages, f'export: the loaded program launched K1 '
+          f'{launches} times, expected {n_stages} (one per stage)')
+    check(all(bool(torch.isfinite(o).all()) for o in outs),
+          'export: non-finite outputs')
+    norms = torch.stack([o.float().norm(dim=-1) for o in outs[2:]])
+    tol = TOL_BF16 if EXPORT_DTYPE == 'bfloat16' else 1e-4
+    check((norms - 1).abs().max().item() <= tol, 'export: gazes not unit')
+    try:
+        export_model.main([TRAIN_CONFIG, '--out',
+                           os.path.join(root, 'fused.pt2'), '--device',
+                           str(device), '--cfg-options',
+                           'model.backbone_impl=fused',
+                           'model.fused_attention=True', *opts])
+    except NotImplementedError as e:
+        refused = str(e)
+    else:
+        check(False, 'export: the fused configuration exported')
+    check(not os.path.exists(os.path.join(root, 'fused.pt2')),
+          'export: a fused program was written')
+    del loaded, eager, outs
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    emit('export', dtype=EXPORT_DTYPE, batch_clips=1, program_mb=size_mb,
+         selftest_max_abs_err=selftest_err,
+         selftest_atol=export_model.SELFTEST_ATOL,
+         k1_launches_per_call=launches, loaded_ms_per_call=loaded_ms,
+         eager_ms_per_call=eager_ms, fused_refused=refused,
+         card=nvidia_smi())
+    return launches
+
+
+def phase_demo(device, opts=()):
+    """The demo at full width with seeded random weights (and a head
+    bias): HeadDetector at YOLOv5m's width (depth 0.67, width 0.75, 640
+    px, conf_thres 0.01) on 8 fabricated 640x480 u8 frames (no resize):
+    heads in every frame, boxes finite, inside the frame, at most max_det;
+    ms per batch of 8 (host clock, synchronised, median of 5) and the
+    NMS's kernels per batch (torch.profiler). Then gaze_demo's gaze
+    step on labels the phase writes itself (the random detector finds no
+    real heads): read_labels -> group_segments -> square_crop ->
+    run_video, two persons over 20 frames whose square crops are 224 px
+    (no resize), through the l2cs config at 224 px and seeded random
+    weights; K1 launched 4 times per forward; fused gazes unit on frames
+    one clip covers."""
+    import shutil
+
+    from mcgaze_tpu_torch.demo import gaze_demo
+    from mcgaze_tpu_torch.evaluation.driver import (VideoGazeEvaluator,
+                                                    clip_slices)
+    from mcgaze_tpu_torch.models import yolov5
+    from mcgaze_tpu_torch.ops import roi_align_cuda
+    from mcgaze_tpu_torch.tools.test_gaze360_gaze import build_forward
+    from mcgaze_tpu_torch.utils.cfg_options import apply_overrides
+    from mcgaze_tpu_torch.utils.config import load_config
+
+    # random weights score every box near 0.25, persons above heads: a low
+    # threshold gives the NMS candidates to suppress, and a head bias makes
+    # heads the class it keeps, so the boxes checked below are not none
+    ycfg = yolov5.YoloConfig()
+    model = yolov5.init_yolo(ycfg, seed=0, device=device)
+    with torch.no_grad():
+        for conv in model.model[24].m:
+            conv.bias.view(len(ycfg.anchors[0]), -1)[:, 6] += 1.0
+    detector = yolov5.HeadDetector(model, conf_thres=0.01)
+    rng = np.random.RandomState(12)
+    frames = [rng.randint(0, 256, (480, 640, 3), np.uint8)
+              for _ in range(20)]
+    batch = frames[:8]
+    dets = detector(batch)
+    torch.cuda.synchronize()
+    check(min(len(d) for d in dets) > 0, 'demo: no heads in a frame')
+    for d in dets:
+        check(np.isfinite(d).all(), 'demo: non-finite detections')
+        check(len(d) <= detector.max_det, f'demo: {len(d)} detections')
+        check(((d[:, [0, 2]] >= 0) & (d[:, [0, 2]] <= 640)).all() and
+              ((d[:, [1, 3]] >= 0) & (d[:, [1, 3]] <= 480)).all(),
+              'demo: boxes outside the frame')
+    times = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        detector(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    det_ms = float(np.median(times[1:]))
+    canvases = torch.from_numpy(np.stack([f[..., ::-1] for f in batch]))
+    canvases = torch.nn.functional.pad(canvases.to(device), (0, 0, 0, 0, 80,
+                                                             80), value=114)
+    with torch.inference_mode():
+        preds = yolov5.decode_predictions(
+            ycfg, detector.model(canvases.float() / 255.0))
+        rows = profile_rows(lambda: yolov5.postprocess(
+            ycfg, preds, detector.conf_thres), 1)
+    nms_kernels = sum(r[2] for r in rows if 'Memcpy' not in r[1]
+                      and 'Memset' not in r[1])
+    nms_copies = sum(r[2] for r in rows if 'Memcpy' in r[1])
+    del preds, canvases, detector, model
+    torch.cuda.empty_cache()
+
+    # the gaze step on fabricated labels: two persons, boxes of side 140,
+    # so square_crop cuts 2 * int(0.8 * 140) = 224 px
+    work = os.path.join(ROOT, 'work_dirs', 'chip_smoke_demo')
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    for i in range(len(frames)):
+        with open(os.path.join(work, f'{i}.txt'), 'w') as f:
+            for cx in (200 + i, 440 - i):
+                f.write(f'1 {cx - 70} 170 {cx + 70} 310\n')
+    segments = gaze_demo.group_segments(
+        [gaze_demo.read_labels(os.path.join(work, f'{i}.txt'))
+         for i in range(len(frames))])
+    shutil.rmtree(work, ignore_errors=True)
+    check(len(segments) == 1 and len(segments[0]['persons']) == 2,
+          f'demo: segments {segments}')
+    crop_shapes = {gaze_demo.square_crop(frames[fid], box).shape
+                   for person in segments[0]['persons']
+                   for fid, box in zip(segments[0]['frame_id'], person)}
+    check(crop_shapes == {(224, 224, 3)}, f'demo: crops {crop_shapes}')
+    cfg = apply_overrides(load_config(os.path.join(
+        ROOT, 'configs', 'multiclue_gaze', 'multiclue_gaze_r50_l2cs.py')),
+        ['eval_cfg.scale=224,224', 'eval_cfg.canvas=224,224', *opts])
+    evaluator = VideoGazeEvaluator(build_forward(cfg, None, device=device),
+                                   cfg.eval_cfg)
+    ecfg = cfg.eval_cfg
+    slices = clip_slices(len(frames), ecfg.clip_length, ecfg.stride)
+    forwards = 2 * -(-len(slices) // ecfg.clip_batch)
+    reset_counters()
+    t0 = time.perf_counter()
+    gaze_demo.segment_gazes(evaluator, frames, segments)
+    torch.cuda.synchronize()
+    gaze_s = time.perf_counter() - t0
+    launches = roi_align_cuda.launch_count
+    check(launches == 4 * forwards, f'demo: K1 launched {launches} times, '
+          f'expected {4 * forwards} (4 per forward)')
+    covered = np.zeros(len(frames), int)
+    for start, length, _ in slices:
+        covered[start:start + length] += 1
+    norm_err = 0.0
+    for g in segments[0]['gazes']:
+        check(g.shape == (len(frames), 3) and np.isfinite(g).all(),
+              f'demo: gazes {g.shape}')
+        norm_err = max(norm_err, float(np.abs(np.linalg.norm(
+            g[covered == 1], axis=1) - 1).max()))
+    check(norm_err <= 1e-4, f'demo: fused gazes not unit ({norm_err})')
+    del evaluator
+    torch.cuda.empty_cache()
+    emit('demo', detector='YOLOv5m (depth 0.67, width 0.75), 640 px, '
+         'seeded random weights with a head bias, f32, conf_thres 0.01',
+         frames=len(batch),
+         detections=[len(d) for d in dets], detector_ms_per_batch_of_8=det_ms,
+         nms_kernels_per_batch=nms_kernels, nms_copies_per_batch=nms_copies,
+         labels='fabricated: the random detector finds no real heads',
+         gaze='l2cs config at 224 px, seeded random weights, f32, '
+              '2 persons x 20 frames, 224 px crops',
+         gaze_forwards=forwards, k1_launches=launches, gaze_seconds=gaze_s,
+         fused_gaze_norm_err=norm_err, card=nvidia_smi())
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this test '
@@ -1628,7 +2262,10 @@ def main():
     del train_step
     torch.cuda.empty_cache()
     train_fused_launches = phase_train_fused(device)
+    serve_launches = phase_serve(device, ckpt)
+    export_launches = phase_export(device, ckpt)
     cli_launches = phase_cli(device, ckpt)
+    demo_launches = phase_demo(device)
 
     # each kernel beside the case of the path that runs it: K1 at the eval
     # shape (bf16, frame_idx), K3 at the training shape (f32, identity), K4
@@ -1666,7 +2303,9 @@ def main():
         line('roi_align_fpn', 'mcgaze_tpu_torch/csrc/roi_align_fpn.cu',
              'mcgaze_tpu/ops/roi_align_pallas.py:424',
              dict(eval=eval_launches, eval_fused=fused_launches['k1'],
-                  train=train_launches['k1'], **cli_launches), k1),
+                  train=train_launches['k1'], **cli_launches,
+                  serve=serve_launches, export=export_launches,
+                  demo=demo_launches), k1),
         line('roi_align_fpn_bwd',
              'mcgaze_tpu_torch/csrc/roi_align_fpn_bwd.cu',
              'mcgaze_tpu/ops/roi_align_pallas.py:772',

@@ -4,7 +4,9 @@ Each `csrc/<name>.cu` has a plain C interface and may include the shared
 headers `csrc/*.cuh`. It is compiled with nvcc
 for sm_90a into `mcgaze_tpu_torch/_build/lib<name>-<source hash>.so` at
 first use (or by `build_all`, which starts one nvcc per source at once)
-and loaded with ctypes. Nothing is built or loaded at import time.
+and loaded with ctypes. Nothing is built or loaded at import time. One lock
+serialises building and loading, so threads that reach a kernel's first
+launch together (a server's) build and load each library once.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -25,6 +28,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _loaded: dict = {}
+_lock = threading.RLock()
 
 
 def find_nvcc() -> str:
@@ -75,36 +79,43 @@ def build_all(names=SOURCES) -> dict:
     """Compile every source whose library is missing, one nvcc each, all
     started together. Returns {name: {'seconds', 'log', 'path'}}; a
     library already built reports seconds 0 and an empty log."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    started = {n: _start(n) for n in names if not library_path(n).exists()}
-    report = {}
-    try:
-        for n in names:
-            if n in started:
-                log = _finish(n, *started.pop(n))
-                report[n] = dict(seconds=time.perf_counter() - t0, log=log,
-                                 path=str(library_path(n)))
-            else:
-                report[n] = dict(seconds=0.0, log='',
-                                 path=str(library_path(n)))
-    finally:
-        for proc, tmp, _ in started.values():    # only after a failure
-            proc.kill()
-            proc.wait()
-            tmp.unlink(missing_ok=True)
-    return report
+    with _lock:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        started = {n: _start(n) for n in names
+                   if not library_path(n).exists()}
+        report = {}
+        try:
+            for n in names:
+                if n in started:
+                    log = _finish(n, *started.pop(n))
+                    report[n] = dict(seconds=time.perf_counter() - t0,
+                                     log=log, path=str(library_path(n)))
+                else:
+                    report[n] = dict(seconds=0.0, log='',
+                                     path=str(library_path(n)))
+        finally:
+            for proc, tmp, _ in started.values():    # only after a failure
+                proc.kill()
+                proc.wait()
+                tmp.unlink(missing_ok=True)
+        return report
 
 
 def load(name: str) -> ctypes.CDLL:
     """The ctypes handle of csrc/<name>.cu, built first if needed."""
     lib = _loaded.get(name)
-    if lib is None:
-        if not library_path(name).exists():
-            build_all((name,))
-        lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
-        lib.mcg_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.mcg_cuda_error_string.restype = ctypes.c_char_p
+    if lib is not None:
+        return lib
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            if not library_path(name).exists():
+                build_all((name,))
+            lib = ctypes.CDLL(str(library_path(name)))
+            lib.mcg_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.mcg_cuda_error_string.restype = ctypes.c_char_p
+            _loaded[name] = lib
     return lib
 
 

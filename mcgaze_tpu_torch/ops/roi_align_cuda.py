@@ -15,6 +15,16 @@ and the backward kernel for the feature gradient (the rois get none, the
 model detaches them). The launch wrappers raise on anything the kernels do
 not take; there is no fallback from the card to the plain version.
 `launch_count` and `bwd_launch_count` count the kernels' launches.
+
+The forward is also the operator `torch.ops.mcgaze.roi_align_fpn`, so a
+traced program (`torch.export`, tools/deployment/export_model.py) records
+it as one node: its CUDA kernel is the forward kernel, its CPU kernel the
+plain version, and its fake kernel gives the output's shape.
+`roi_align_fpn` goes through the operator only while a program is being
+traced, and the operator has no gradient: with the backward kernel
+registered as its gradient, an eager call whose features need one cost
+several times the autograd Function's host time (tools/k1_host_us.py,
+'roi_align_fpn, grad'; PERF.md).
 """
 from __future__ import annotations
 
@@ -43,6 +53,10 @@ def roi_align_fpn(feats, rois: torch.Tensor,
     frame_idx: optional (N,) int32 slot -> frame map (U == N when
     omitted). Returns (N, R, out_size, out_size, C) in feats' dtype,
     differentiable in feats."""
+    if torch.compiler.is_compiling():
+        return torch.ops.mcgaze.roi_align_fpn(
+            list(feats), rois, frame_idx, out_size, sampling_ratio,
+            list(strides), float(finest_scale))
     tensors = list(feats) + [rois] + ([] if frame_idx is None
                                       else [frame_idx])
     devices = {t.device for t in tensors}
@@ -56,6 +70,36 @@ def roi_align_fpn(feats, rois: torch.Tensor,
         rois, frame_idx,
         (out_size, sampling_ratio, tuple(strides), float(finest_scale)),
         *feats)
+
+
+def _op_cpu(feats, rois, frame_idx, out_size, sampling_ratio, strides,
+            finest_scale):
+    # looked up at call time, as roi_align_fpn's CPU path is, so a test
+    # can wrap both at once
+    return roi_align_fpn_mm(feats, rois, frame_idx, out_size, sampling_ratio,
+                            strides, finest_scale)
+
+
+roi_align_fpn_op = torch.library.custom_op(
+    'mcgaze::roi_align_fpn', _op_cpu, mutates_args=(), device_types='cpu',
+    schema='(Tensor[] feats, Tensor rois, Tensor? frame_idx, int out_size, '
+           'int sampling_ratio, int[] strides, float finest_scale) -> Tensor')
+
+
+@roi_align_fpn_op.register_kernel('cuda')
+def _op_cuda(feats, rois, frame_idx, out_size, sampling_ratio, strides,
+             finest_scale):
+    # the operator has no gradient: its kernel never builds a graph
+    with torch.no_grad():
+        return launch_roi_align_fpn(feats, rois, frame_idx, out_size,
+                                    sampling_ratio, strides, finest_scale)
+
+
+@roi_align_fpn_op.register_fake
+def _op_fake(feats, rois, frame_idx, out_size, sampling_ratio, strides,
+             finest_scale):
+    return feats[0].new_empty((rois.shape[0], rois.shape[1], out_size,
+                               out_size, feats[0].shape[-1]))
 
 
 class RoIAlignFPNFunction(torch.autograd.Function):

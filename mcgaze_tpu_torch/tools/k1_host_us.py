@@ -1,17 +1,22 @@
 """Host time of one call of K1's wrapper (the FPN RoIAlign forward,
 `ops/roi_align_cuda.py::launch_roi_align_fpn`): the checks, the output's
-allocation, the argument marshalling and the launch, as the eager forward
-pays them on every call. On one CUDA card, at the gaze eval shape (bf16,
-frame_idx form: 224 slots of 3 RoIs on 131 frames at 224 px, C=256) and the
-train shape (f32, identity form, 224 frames). From the root of a checkout:
+allocation, the argument marshalling and the launch; and of
+`roi_align_fpn`, the entry the model calls, which adds what stands in
+front of the launch (the operator `mcgaze::roi_align_fpn`'s dispatch and
+gradient registration; in checkouts before the operator, an autograd
+Function), as the eager forward pays them on every call. On one CUDA
+card, at the gaze eval shape (bf16, frame_idx form: 224 slots of 3 RoIs
+on 131 frames at 224 px, C=256) and the train shape (f32, identity form,
+224 frames), the latter also with features that need a gradient, as a
+train step calls it. From the root of a checkout:
 
     python -m mcgaze_tpu_torch.tools.k1_host_us
 
 It imports `mcgaze_tpu_torch` from the path, so
 `cd OTHER && PYTHONPATH=. python /path/to/this/mcgaze_tpu_torch/tools/k1_host_us.py`
 times another checkout's wrapper (say, the parent commit unpacked with
-`git archive`). Prints one JSON object: per case the median and mean
-microseconds of `reps` calls, each timed alone on the host's clock.
+`git archive`). Prints one JSON object: per case and entry the median and
+mean microseconds of `reps` calls, each timed alone on the host's clock.
 """
 import json
 import subprocess
@@ -63,12 +68,20 @@ def main(reps=200):
     out = []
     for name, (dtype, frames, slots, frame_map) in cases.items():
         feats, rois, fidx = inputs(device, dtype, frames, slots, frame_map)
-        with torch.inference_mode():
+        for entry in ('launch_roi_align_fpn', 'roi_align_fpn'):
+            fn = getattr(roi_align_cuda, entry)
+            with torch.inference_mode():
+                med, mean = host_us(lambda: fn(feats, rois, fidx), reps)
+            out.append(dict(case=name, entry=entry, host_us_median=med,
+                            host_us_mean=mean, reps=reps))
+        if fidx is None:
+            for f in feats:
+                f.requires_grad_()
             med, mean = host_us(
-                lambda: roi_align_cuda.launch_roi_align_fpn(feats, rois,
-                                                            fidx), reps)
-        out.append(dict(case=name, host_us_median=med, host_us_mean=mean,
-                        reps=reps))
+                lambda: roi_align_cuda.roi_align_fpn(feats, rois), reps)
+            out.append(dict(case=name, entry='roi_align_fpn, grad',
+                            host_us_median=med, host_us_mean=mean,
+                            reps=reps))
         del feats, rois, fidx
         torch.cuda.empty_cache()
     smi = subprocess.run(

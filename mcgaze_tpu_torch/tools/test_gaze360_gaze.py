@@ -58,28 +58,21 @@ def load_weights(model, checkpoint: str, ema: bool = False) -> None:
     buffers, BN statistics, stay the checkpoint's)."""
     import torch
 
-    from ..utils.checkpoint import train_path
+    from ..utils.checkpoint import ema_weights, require_pth, train_path
     from ..utils.convert import clean_reference_state_dict
 
-    if not checkpoint.endswith(('.pth', '.pt')):
-        raise SystemExit(f'{checkpoint}: the port reads torch .pth '
-                         'checkpoints (a reference mmdet one or the port\'s '
-                         'ckpt_<step>.pth)')
+    require_pth(checkpoint)
     # a reference checkpoint's meta holds more than tensors, as the JAX
     # package's converter expects (weights_only=False)
     ckpt = torch.load(checkpoint, map_location='cpu', weights_only=False)
     sd = clean_reference_state_dict(ckpt.get('state_dict', ckpt))
     if ema:
-        tpath = train_path(checkpoint)
-        averaged = (torch.load(tpath, map_location='cpu', weights_only=True)
-                    .get('ema') if osp.exists(tpath) else None)
-        if averaged is None:
-            raise SystemExit(f'{tpath} holds no ema weights: train with '
-                             'optim.ema_momentum > 0 to produce them')
+        averaged = ema_weights(checkpoint)
         params = {n for n, _ in model.named_parameters()}
         if set(averaged) != params:
             raise SystemExit(
-                f'{tpath}: the ema keys are not the model\'s parameters '
+                f'{train_path(checkpoint)}: the ema keys are not the '
+                'model\'s parameters '
                 f'(missing {sorted(params - set(averaged))[:3]}, extra '
                 f'{sorted(set(averaged) - params)[:3]})')
         sd.update(averaged)

@@ -37,6 +37,28 @@ def train_path(path: str) -> str:
     return path[:-len('.pth')] + '_train.pth'
 
 
+def require_pth(path: str) -> None:
+    """SystemExit where `path` is not a torch .pth file (an orbax
+    checkpoint directory of the JAX package, say)."""
+    if not path.endswith(('.pth', '.pt')):
+        raise SystemExit(f'{path}: the port reads torch .pth checkpoints (a '
+                         'reference mmdet one or the port\'s '
+                         'ckpt_<step>.pth)')
+
+
+def ema_weights(path: str) -> dict:
+    """The EMA copy of the parameters that the train CLI keeps in the
+    `ema` entry of ckpt_<step>_train.pth beside `path`; SystemExit where
+    there is none."""
+    tpath = train_path(path)
+    averaged = (restore_checkpoint(tpath).get('ema')
+                if osp.exists(tpath) else None)
+    if averaged is None:
+        raise SystemExit(f'{tpath} holds no ema weights: train with '
+                         'optim.ema_momentum > 0 to produce them')
+    return averaged
+
+
 def restore_checkpoint(path: str) -> Any:
     """What save_checkpoint wrote at `path` (tensors, numbers, dicts), on
     the CPU."""

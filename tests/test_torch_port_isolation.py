@@ -39,7 +39,12 @@ def test_port_imports_no_jax():
                  'data.dataset', 'data.coco_vid', 'tools.test_gaze360_gaze',
                  'tools.test', 'tools.calculate_mae_gaze360',
                  'tools.calculate_mae_l2cs', 'data.native_loader',
-                 'evaluation.mae_device'):
+                 'evaluation.mae_device', 'evaluation.serving',
+                 'tools.deployment.serve', 'tools.deployment.package_model',
+                 'tools.deployment.test_server',
+                 'tools.deployment.export_model',
+                 'tools.model_converters.publish_model', 'models.yolov5',
+                 'demo.head_det', 'demo.gaze_demo'):
         assert f'mcgaze_tpu_torch.{name}' in walked, name
 
 
