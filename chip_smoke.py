@@ -11,7 +11,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
           card: f32 and bf16, identity and frame_idx forms, at the gaze
           eval shape (224 px, 32 clips: 131 unique frames, 224 slots, 3
           RoIs, C=256) with boxes that mix levels, run off the image, and
-          include an inverted and a zero-area box; R=100 at 384x640; the
+          include an inverted and a zero-area box; R=100 at 384x640 (bf16,
+          44 frames; and the InstBlink path's f32 identity shapes, 44 and
+          88 frames of 100 RoIs: a train step and an eval launch); the
           l2cs eval shape (448 px, 32 clips, bf16, frame_idx form); and
           the shapes the serving and demo paths give it at 224 px: the
           micro-batcher's 1- and 8-clip buckets (bf16, identity form),
@@ -125,6 +127,26 @@ Phases, each printing one JSON line (any failure exits non-zero):
           then gaze_demo's gaze step (read_labels -> group_segments ->
           square_crop -> run_video) on fabricated labels with 224 px
           crops, 4 K1 launches per forward, unit fused gazes
+  instblink_train  the InstBlink R-50 config at full width (4 clips x 11
+          frames on the 384x640 canvas, 100 queries, 6 stages, f32, cuDNN
+          TF32 on) through train_instblink.main --synthetic for 3 steps,
+          counters reset before and read after (6 K1 and 6 K3 launches per
+          step); finite losses; ms per step (median of 4 after a warm
+          step), the host ms of the matching solves per step, peak memory;
+          one profiled step: idle share, K1 and K3 ms per step. Writes the
+          ckpt_3.pth the next phase reads
+  instblink_eval  test_instblink.main --eval on that checkpoint over two
+          fabricated MPEblink-form videos (40 and 23 frames of 640x360, two
+          face tracks with blink events) decoded by a .npy stand-in (no
+          OpenCV on this machine), counters reset before and read after (6
+          K1 per forward, 8 windows of 11 frames a forward, no K3); tracks
+          finite, one box per frame, blink probabilities in [0, 1];
+          frames/s and the track and blink AP (random weights: they show
+          the scorer ran); one window in f32, TF32 off, stage by stage
+          (query_window_check): K1 against the plain RoIAlign on each
+          stage's inputs at TOL_F32_REL, the stage head fed either at
+          TOL_E2E, and the composed roi_impl='mm' forward's error per stage
+          reported
 Then the `kernels` line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 
@@ -365,6 +387,11 @@ def phase_kernel(device, timer):
                               fidx=sel if form == 'frame_idx' else None))
     cases.append(dict(shape='query_r100', img=(384, 640), u=44, n=44, r=100,
                       dtype=torch.bfloat16, fidx=None))
+    # the InstBlink path's shapes, f32 identity form: a train step's 4
+    # clips of 11 frames and an eval launch's 8 windows of 11
+    for shape, frames in (('instblink_train', 44), ('instblink_eval', 88)):
+        cases.append(dict(shape=shape, img=(384, 640), u=frames, n=frames,
+                          r=100, dtype=torch.float32, fidx=None))
     # the l2cs eval setting: 448 px, no crop (level 0 is 112x112)
     cases.append(dict(shape='l2cs_eval', img=(448, 448),
                       u=int(sel.max()) + 1, n=len(sel), r=3,
@@ -2215,6 +2242,356 @@ def phase_demo(device, opts=()):
     return launches
 
 
+# ------------------------------------------------ the InstBlink detector
+
+INSTBLINK_CONFIG = os.path.join(ROOT, 'configs', 'instblink',
+                                'instblink_r50_mpeblink.py')
+INSTBLINK_DECODE = 'npy stand-in for _decode_video (no OpenCV on this machine)'
+
+
+def query_window_check(model, imgs, whwh, t):
+    """A QueryDetector window through K1 against roi_impl='mm', stage by
+    stage. One forward through K1 records each stage's RoIAlign inputs and
+    head inputs; per stage, the plain RoIAlign on the same inputs is held
+    against K1 within TOL_F32_REL of the largest |feature| (the kernel
+    phase's f32 tolerance), and the stage head fed the plain features and
+    the same query against the head fed K1's within TOL_E2E (cls_logits and
+    obj absolute, decoded boxes relative to their largest coordinate). A
+    forward with roi_impl='mm' throughout is compared too, and its error
+    per stage reported, not held: six stages of random weights amplify a
+    1e-6 difference about tenfold a stage (boxes reach 1e5 px), so the
+    composed outputs measure that amplification, not the kernel. Returns
+    the per-stage numbers; raises on a failed check."""
+    from mcgaze_tpu_torch.evaluation.forward import device_normalize
+    from mcgaze_tpu_torch.geometry import delta2bbox
+    from mcgaze_tpu_torch.models import query_detector as qd
+    from mcgaze_tpu_torch.ops.roi_align import roi_align_fpn_mm
+
+    kernel = qd.roi_align_fpn
+    aligns, heads = [], []
+
+    def both(feats, rois, frame_idx, *args):
+        out = kernel(feats, rois, frame_idx, *args)
+        aligns.append((rois, out, roi_align_fpn_mm(feats, rois, frame_idx,
+                                                   *args),
+                       max(f.abs().max().item() for f in feats)))
+        return out
+
+    hooks = [h.register_forward_hook(
+        lambda m, args, out: heads.append((m, args, out)))
+        for h in model.roi_head.bbox_head]
+    qd.roi_align_fpn = both
+    cfg = model.cfg
+    try:
+        with torch.inference_mode():
+            x = device_normalize(imgs, whwh)
+            got = model(x, whwh, t)['stages']
+            qd.roi_align_fpn = kernel
+            for h in hooks:
+                h.remove()
+            model.cfg = dataclasses.replace(cfg, roi_impl='mm')
+            plain = model(x, whwh, t)['stages']
+            model.cfg = cfg
+            rows = []
+            for (rois, k, p, fmax), (head, (roi_feat, query, tt),
+                                     (cls, deltas, obj, _)) in zip(aligns,
+                                                                   heads):
+                cls_p, deltas_p, obj_p, _ = head(p.reshape(roi_feat.shape),
+                                                 query, tt)
+                bk = delta2bbox(rois, deltas.float())
+                bp = delta2bbox(rois, deltas_p.float())
+                rows.append(dict(
+                    k1_err=(k - p).abs().max().item(),
+                    k1_tol=TOL_F32_REL * max(1.0, fmax),
+                    head_cls_err=(cls - cls_p).abs().max().item(),
+                    head_obj_err=(obj - obj_p).abs().max().item(),
+                    head_box_rel_err=(bk - bp).abs().max().item()
+                    / max(bp.abs().max().item(), 1.0),
+                    roi_extent_px=[rois.min().item(), rois.max().item()]))
+            for row, g, p in zip(rows, got, plain):
+                row['composed_cls_err'] = (g['cls_logits'] - p['cls_logits']
+                                           ).abs().max().item()
+                row['composed_box_rel_err'] = (
+                    (g['boxes'] - p['boxes']).abs().max()
+                    / p['boxes'].abs().max().clamp_min(1.0)).item()
+    finally:
+        qd.roi_align_fpn = kernel
+        model.cfg = cfg
+        for h in hooks:
+            h.remove()
+    check(len(rows) == cfg.num_stages, f'{len(rows)} stages recorded')
+    for s, row in enumerate(rows):
+        check(row['k1_err'] <= row['k1_tol'], f'window stage {s}: K1 vs the '
+              f'plain RoIAlign on the same inputs {row["k1_err"]} > '
+              f'{row["k1_tol"]}')
+        head_err = max(row['head_cls_err'], row['head_obj_err'],
+                       row['head_box_rel_err'])
+        check(head_err <= TOL_E2E, f'window stage {s}: the head fed K1 vs '
+              f'fed the plain RoIAlign {head_err} > {TOL_E2E}')
+    return rows
+
+
+def phase_instblink_train(device, opts=(), steps=3):
+    """The InstBlink R-50 config at full width (4 clips x 11 frames on the
+    384x640 canvas, 100 queries, 6 stages, f32, cuDNN TF32 on and matmul
+    TF32 off, the card's defaults) through the train CLI's main() with
+    --synthetic for `steps` steps, both launch counters reset before and
+    read after: 6 K1 and 6 K3 launches per step; finite losses. Then ms per
+    step (median of 4 after one warm step), the host ms of the matching
+    solves per step, peak memory, and one profiled step: device idle
+    share, K1 and K3 ms per step. `opts`: config overrides (a CPU rehearsal
+    passes a tiny model). Returns (launches, ckpt_<steps>.pth)."""
+    import shutil
+
+    from mcgaze_tpu_torch.ops import roi_align_cuda
+    from mcgaze_tpu_torch.tools import train_instblink
+    from mcgaze_tpu_torch.train.query_loop import make_query_train_step
+    from mcgaze_tpu_torch.utils.cfg_options import apply_overrides
+    from mcgaze_tpu_torch.utils.query_config import load_query_config
+
+    cfg = apply_overrides(load_query_config(INSTBLINK_CONFIG), list(opts))
+    work_dir = os.path.join(ROOT, 'work_dirs', 'chip_smoke_instblink')
+    shutil.rmtree(work_dir, ignore_errors=True)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    # the main path: counts from zero, read right after
+    roi_align_cuda.launch_count = 0
+    roi_align_cuda.bwd_launch_count = 0
+    t0 = time.perf_counter()
+    out = train_instblink.main(
+        [INSTBLINK_CONFIG, '--synthetic', '--device', str(device),
+         '--max-iters', str(steps), '--work-dir', work_dir,
+         '--log-interval', '1'] + (['--cfg-options', *opts] if opts else []))
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = dict(k1=roi_align_cuda.launch_count,
+                    k3=roi_align_cuda.bwd_launch_count)
+    per_step = cfg.model.num_stages
+    check(launches == dict(k1=per_step * steps, k3=per_step * steps),
+          f'instblink train path launched {launches}, expected {per_step} '
+          f'of K1 and of K3 per step over {steps} steps')
+    hist = out['history']
+    check(len(hist) == steps and all(
+        np.isfinite([v for k, v in h.items() if k.startswith(
+            ('stage', 'loss', 'grad_norm'))]).all() for h in hist),
+        f'instblink train losses not finite: '
+        f'{[(h["loss"], h["grad_norm"]) for h in hist]}')
+
+    # time: a fresh full batch, the card's defaults
+    state = out['state']
+    batch = {k: torch.from_numpy(v).to(device) for k, v in next(
+        train_instblink.synthetic_batches(cfg, seed=2)).items()}
+    step_fn = make_query_train_step(cfg.model, cfg.optim)
+    torch.cuda.reset_peak_memory_stats()
+    walls, match_ms = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logs = step_fn(state, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+        match_ms.append(float(logs['match_ms']))
+    step_ms = float(np.median(walls[1:]))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rows = profile_rows(lambda: step_fn(state, batch), 1)
+    busy = sum(r[0] for r in rows)
+    k1 = sum(r[0] for r in rows if 'roi_align_fpn_kernel' in r[1])
+    k3 = sum(r[0] for r in rows if 'roi_align_fpn_bwd_kernel' in r[1])
+    clips, t = cfg.data_train.batch_size, cfg.model.clip_length
+    emit('instblink_train', config=os.path.relpath(INSTBLINK_CONFIG, ROOT),
+         clips_per_step=clips, frames_per_step=clips * t,
+         canvas=list(cfg.data_train.canvas),
+         queries=cfg.model.num_queries, stages=cfg.model.num_stages,
+         steps=steps, main_path_seconds=main_s, launches=launches,
+         losses=[h['loss'] for h in hist],
+         grad_norms=[h['grad_norm'] for h in hist],
+         main_path_step_seconds=[h['time'] for h in hist],
+         step_ms=step_ms, step_ms_all=walls,
+         clips_per_s=clips / step_ms * 1e3,
+         match_host_ms_per_step=float(np.median(match_ms[1:])),
+         match_host_ms_all=match_ms, peak_mem_gb=peak_gb,
+         kernel_ms_per_step=busy if rows else 'not measured',
+         idle_share=(1 - busy / step_ms) if rows else 'not measured',
+         k1_ms_per_step=k1 if rows else 'not measured',
+         k3_ms_per_step=k3 if rows else 'not measured',
+         kernels_per_step=sum(r[2] for r in rows),
+         top=[dict(ms=round(ms, 4), calls=c, name=k[:80])
+              for ms, k, c, _ in rows[:12]],
+         precision='float32, cuDNN TF32 on (card default), matmul TF32 off',
+         card=nvidia_smi())
+    del state, batch, step_fn, out
+    torch.cuda.empty_cache()
+    return launches, os.path.join(work_dir, f'ckpt_{steps}.pth')
+
+
+def write_instblink_dataset(root, lengths=(40, 23), hw=(360, 640), seed=11):
+    """Two MPEblink-form videos as .npy frames of hw, two face tracks each
+    (the second absent in frame 0) with two blink events; the COCO-VID
+    annotation file. Returns (ann path, frames root)."""
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    frames_root = os.path.join(root, 'frames')
+    videos, anns = [], []
+    for vid, n in enumerate(lengths, 1):
+        names = [f'{vid:03d}/{f:05d}.npy' for f in range(n)]
+        os.makedirs(os.path.join(frames_root, f'{vid:03d}'))
+        for name in names:
+            np.save(os.path.join(frames_root, name),
+                    rng.randint(0, 256, (h, w, 3), np.uint8))
+        videos.append(dict(id=vid, height=h, width=w, length=n,
+                           file_names=names))
+        for inst in range(2):
+            events = [[3, 5], [n - 9, n - 7]]
+            binary = [int(any(s <= f <= e for s, e in events))
+                      for f in range(n)]
+            x0, y0 = w * (0.15 + 0.45 * inst), h * 0.25
+            boxes = [None if inst == 1 and f == 0 else
+                     [x0 + f, y0 + 0.5 * f, w * 0.2, h * 0.35]
+                     for f in range(n)]
+            anns.append(dict(id=len(anns) + 1, video_id=vid, category_id=1,
+                             bboxes=boxes, blinks_binary=binary,
+                             blinks=events))
+    ann = os.path.join(root, 'test.json')
+    with open(ann, 'w') as f:
+        json.dump(dict(videos=videos, annotations=anns,
+                       categories=[dict(id=1, name='person_face')]), f)
+    return ann, frames_root + '/'
+
+
+def npy_decode_instblink(self, paths):
+    """InstBlinkVideoEvaluator._decode_video for .npy frames already at the
+    exact-warp size (the warp is then the identity): u8 frames padded to
+    the canvas, as the native loader's u8 path gives them. The card's
+    machine has no OpenCV, which cv2 and the native loader need."""
+    from mcgaze_tpu_torch.data import transforms as T
+    dc = self.data_cfg
+    frames = [np.load(p) for p in paths]
+    check(all(fr.shape[:2] == (min(dc.scale), max(dc.scale))
+              for fr in frames), 'instblink frames not at the warp size')
+    h, w = frames[0].shape[:2]
+    self.decoder = INSTBLINK_DECODE
+    return (np.stack([T.pad_to_canvas(fr, dc.canvas) for fr in frames]),
+            np.tile(np.asarray([[w, h, w, h]], np.float32),
+                    (len(frames), 1)),
+            np.ones((len(frames), 4), np.float32))
+
+
+def phase_instblink_eval(device, checkpoint, opts=()):
+    """The InstBlink eval CLI at full width (config as in
+    phase_instblink_train, f32, the card's defaults) with --eval on the
+    train phase's checkpoint, over two fabricated MPEblink-form videos (40
+    and 23 frames of 640x360, two face tracks with blink events) decoded
+    by npy_decode_instblink, the launch counters reset before and read
+    after: 6 K1 launches per forward (8 windows of 11 frames per launch),
+    no K3; every track finite with one box entry per frame and blink
+    probabilities in [0, 1]; frames/s, and the track and blink AP (random
+    weights: they only show that the scorer ran). Then one window of 11
+    frames, f32 with TF32 off, through query_window_check. Returns K1's
+    launches."""
+    import contextlib
+    import shutil
+
+    from mcgaze_tpu_torch.evaluation.instblink_driver import (
+        InstBlinkVideoEvaluator, clip_windows)
+    from mcgaze_tpu_torch.models.query_detector import QueryDetector
+    from mcgaze_tpu_torch.ops import roi_align_cuda
+    from mcgaze_tpu_torch.tools import test_instblink
+    from mcgaze_tpu_torch.utils.cfg_options import apply_overrides
+    from mcgaze_tpu_torch.utils.convert import clean_reference_query_state_dict
+    from mcgaze_tpu_torch.utils.query_config import load_query_config
+
+    root = os.path.join(ROOT, 'work_dirs', 'chip_smoke_instblink_eval')
+    shutil.rmtree(root, ignore_errors=True)
+    lengths = (40, 23)
+    ann, frames_root = write_instblink_dataset(root, lengths)
+    data_opts = [f'data_test.ann_file={ann}',
+                 f'data_test.img_prefix={frames_root}', *opts]
+    cfg = apply_overrides(load_query_config(INSTBLINK_CONFIG), data_opts)
+    ec = cfg.eval_cfg
+    t = min(ec.clip_length, min(lengths))
+    forwards = sum(-(-len(clip_windows(n, t, t - ec.overlap))
+                     // ec.clip_batch) for n in lengths)
+    out_json = os.path.join(root, 'results.json')
+
+    decode = InstBlinkVideoEvaluator._decode_video
+    InstBlinkVideoEvaluator._decode_video = npy_decode_instblink
+    buf = io.StringIO()
+    try:
+        roi_align_cuda.launch_count = 0
+        roi_align_cuda.bwd_launch_count = 0
+        with contextlib.redirect_stdout(buf):
+            out = test_instblink.main(
+                [INSTBLINK_CONFIG, checkpoint, '--out', out_json, '--eval',
+                 '--device', str(device), '--cfg-options', *data_opts])
+        torch.cuda.synchronize()
+        launches = dict(k1=roi_align_cuda.launch_count,
+                        k3=roi_align_cuda.bwd_launch_count)
+    finally:
+        InstBlinkVideoEvaluator._decode_video = decode
+    per_forward = cfg.model.num_stages
+    check(launches == dict(k1=per_forward * forwards, k3=0),
+          f'instblink eval launched {launches}, expected {per_forward} K1 '
+          f'per forward over {forwards} forwards and no K3')
+    check(out['evaluator'].decoder == INSTBLINK_DECODE,
+          f'instblink eval decoded with {out["evaluator"].decoder}')
+    with open(out_json) as f:
+        results = json.load(f)
+    check(len(results) == len(lengths) * ec.max_per_img,
+          f'{len(results)} tracks for {len(lengths)} videos')
+    for r in results:
+        n = lengths[r['video_id'] - 1]
+        boxes = [b for b in r['bboxes'] if b is not None]
+        check(len(r['bboxes']) == len(r['blink_scores']) == n
+              and len(boxes) == n, f'track of video {r["video_id"]}: '
+              f'{len(r["bboxes"])} boxes for {n} frames')
+        check(np.isfinite(np.asarray(boxes, np.float64)).all()
+              and np.isfinite(r['score']), 'non-finite instblink track')
+        p = np.asarray(r['blink_scores'])
+        check(((p >= 0) & (p <= 1)).all(), 'blink probability outside [0, 1]')
+    ap_lines = [ln for ln in buf.getvalue().splitlines()
+                if 'track mAP' in ln or 'blink action' in ln]
+    check(len(ap_lines) == 2, f'instblink scorer printed {ap_lines}')
+
+    # one window of video 1, f32, TF32 off: K1 against the plain RoIAlign
+    ckpt = torch.load(checkpoint, map_location='cpu', weights_only=False)
+    model = QueryDetector(cfg.model)
+    model.load_state_dict(clean_reference_query_state_dict(
+        ckpt['state_dict']), strict=True)
+    model = model.to(device).eval()
+    with open(ann) as f:
+        video = json.load(f)['videos'][0]
+    imgs, whwh, _ = npy_decode_instblink(
+        InstBlinkVideoEvaluator(None, ec, data_cfg=cfg.data_test),
+        [os.path.join(frames_root, n) for n in video['file_names'][:t]])
+    imgs = torch.from_numpy(imgs).to(device)
+    whwh = torch.from_numpy(whwh).to(device)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        window = query_window_check(model, imgs, whwh, t)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    del model, imgs
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.rmtree(os.path.dirname(checkpoint), ignore_errors=True)
+    frames = sum(lengths)
+    emit('instblink_eval', config=os.path.relpath(INSTBLINK_CONFIG, ROOT),
+         decode=INSTBLINK_DECODE, videos=list(lengths),
+         frame_hw=[video['height'], video['width']],
+         canvas=list(cfg.data_test.canvas), clip_length=t,
+         overlap=ec.overlap, clip_batch=ec.clip_batch, forwards=forwards,
+         launches=launches, tracks=len(results), seconds=out['seconds'],
+         frames_per_s=frames / out['seconds'], metrics=out['metrics'],
+         ap_lines=ap_lines,
+         metrics_note='random weights: the AP only shows the scorer ran',
+         window=window, tol_e2e=TOL_E2E, tol_f32_rel=TOL_F32_REL,
+         checkpoint=f'instblink_train phase {os.path.basename(checkpoint)}',
+         card=nvidia_smi())
+    return launches['k1']
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this test '
@@ -2266,6 +2643,8 @@ def main():
     export_launches = phase_export(device, ckpt)
     cli_launches = phase_cli(device, ckpt)
     demo_launches = phase_demo(device)
+    ib_train_launches, ib_ckpt = phase_instblink_train(device)
+    ib_eval_launches = phase_instblink_eval(device, ib_ckpt)
 
     # each kernel beside the case of the path that runs it: K1 at the eval
     # shape (bf16, frame_idx), K3 at the training shape (f32, identity), K4
@@ -2305,11 +2684,13 @@ def main():
              dict(eval=eval_launches, eval_fused=fused_launches['k1'],
                   train=train_launches['k1'], **cli_launches,
                   serve=serve_launches, export=export_launches,
-                  demo=demo_launches), k1),
+                  demo=demo_launches, instblink_eval=ib_eval_launches,
+                  instblink_train=ib_train_launches['k1']), k1),
         line('roi_align_fpn_bwd',
              'mcgaze_tpu_torch/csrc/roi_align_fpn_bwd.cu',
              'mcgaze_tpu/ops/roi_align_pallas.py:772',
-             dict(train=train_launches['k3']), k3),
+             dict(train=train_launches['k3'],
+                  instblink_train=ib_train_launches['k3']), k3),
         line('fused_stqi_attention',
              'mcgaze_tpu_torch/csrc/stqi_attention.cu',
              'mcgaze_tpu/ops/stqi_attention.py:110',

@@ -8,6 +8,11 @@ over it, both run under torch.inference_mode():
       with backbone + FPN run once per unique frame and each clip slot
       reading frame sel[slot] (the RoIAlign kernel's frame_idx form).
 `bind_forward` adapts them to the driver's forward_fn signature.
+
+For the query family (InstBlink), `make_query_eval_forward` and
+`bind_query_forward` give InstBlinkVideoEvaluator its forward: u8 frames
+normalised on the device, the top-k track selection on the device, the
+outputs left there for the driver's one readback per video.
 """
 from __future__ import annotations
 
@@ -97,4 +102,50 @@ def bind_forward(fwd, device, fwd_dedup=None):
                              to_device(whwh_u, device), t)
 
         forward.dedup = dedup
+    return forward
+
+
+def make_query_eval_forward(model, mc):
+    """(fwd, fwd_batched) over a QueryDetector `model` of config `mc`, both
+    under torch.inference_mode():
+      fwd(imgs (T, H, W, 3) u8|f32, whwh (T, 4)) -> topk_tracks dict
+      fwd_batched(imgs (Kq*T, ...), whwh, kq) -> topk_tracks_batched dict
+    """
+    from ..models.query_detector import topk_tracks, topk_tracks_batched
+
+    @torch.inference_mode()
+    def fwd(imgs, whwh):
+        imgs = device_normalize(imgs, whwh)
+        t = imgs.shape[0]
+        out = model(imgs, whwh, clip_length=t)
+        return topk_tracks(out['stages'][-1], t, mc.max_per_img,
+                           mc.num_classes)
+
+    @torch.inference_mode()
+    def fwd_batched(imgs, whwh, kq):
+        imgs = device_normalize(imgs, whwh)
+        t = imgs.shape[0] // kq
+        out = model(imgs, whwh, clip_length=t)
+        return topk_tracks_batched(out['stages'][-1], kq, t,
+                                   mc.max_per_img, mc.num_classes)
+
+    return fwd, fwd_batched
+
+
+def bind_query_forward(fwd, fwd_batched, device):
+    """InstBlinkVideoEvaluator's forward_fn: forward(imgs, whwh) with host
+    or device inputs, `.batched(imgs, whwh, kq)` beside it, outputs left on
+    the device; marks itself accepts_uint8 and carries `.device`."""
+    device = resolve_device(device)
+
+    def forward(imgs, whwh):
+        return fwd(to_device(imgs, device), to_device(whwh, device))
+
+    def batched(imgs, whwh, kq):
+        return fwd_batched(to_device(imgs, device), to_device(whwh, device),
+                           kq)
+
+    forward.batched = batched
+    forward.accepts_uint8 = True
+    forward.device = device
     return forward

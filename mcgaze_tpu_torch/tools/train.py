@@ -83,14 +83,16 @@ def train_state_dict(state) -> dict:
                 else {k: v.detach().cpu() for k, v in state.ema.items()})
 
 
-def restore_train_state(state, path: str) -> None:
+def restore_train_state(state, path: str, clean=None) -> None:
     """Load ckpt_<step>.pth (and its _train file when present) into state,
-    in place."""
+    in place. `clean` maps the file's state dict to the model's keys
+    (default: utils/convert.py::clean_reference_state_dict)."""
     from ..utils.checkpoint import restore_checkpoint, train_path
     from ..utils.convert import clean_reference_state_dict
     ckpt = restore_checkpoint(path)
     state.model.load_state_dict(
-        clean_reference_state_dict(ckpt['state_dict']), strict=True)
+        (clean or clean_reference_state_dict)(ckpt['state_dict']),
+        strict=True)
     if osp.exists(train_path(path)):
         tr = restore_checkpoint(train_path(path))
         state.optimizer.load_state_dict(tr['optimizer'])

@@ -85,14 +85,17 @@ def param_group(name: str) -> str:
 
 @dataclasses.dataclass
 class TrainState:
-    model: MCGazeModel
+    model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
     # EMA copy of the parameters by name, when OptimConfig.ema_momentum
     ema: Optional[dict] = None
 
 
-def make_optimizer(model: MCGazeModel, oc: OptimConfig) -> torch.optim.AdamW:
+def make_optimizer(model: torch.nn.Module,
+                   oc: OptimConfig) -> torch.optim.AdamW:
+    """AdamW over the parameters of any model named as the reference's
+    (MCGazeModel, QueryDetector), in the groups of `param_group`."""
     groups = {'backbone': [], 'head': []}
     for name, p in model.named_parameters():
         g = param_group(name)
@@ -147,36 +150,44 @@ def make_train_step(cfg: ModelConfig, oc: OptimConfig):
     sched = step_warmup_schedule(oc)
 
     def train_step(state: TrainState, batch: dict) -> dict:
-        named = list(state.model.named_parameters())
-        for _, p in named:
+        for p in state.model.parameters():
             p.grad = None
         loss, logs = loss_fn(cfg, state.model, batch)
         loss.backward()
-        for _, p in named:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
         logs = {k: v.detach() for k, v in logs.items()}
-        logs['grad_norm'] = global_norm(p.grad for _, p in named)
-
-        trainable = []
-        for name, p in named:
-            if param_group(name) == 'frozen':
-                p.grad = None
-            else:
-                trainable.append(p.grad)
-        norm = global_norm(trainable)
-        factor = torch.where(norm < oc.grad_clip_norm,
-                             torch.ones_like(norm),
-                             oc.grad_clip_norm / norm)
-        torch._foreach_mul_(trainable, factor)
-
-        lr = sched(state.step)
-        for group in state.optimizer.param_groups:
-            group['lr'] = lr * group['lr_mult']
-        state.optimizer.step()
-        state.step += 1
-        if state.ema is not None:
-            ema_update(state.ema, dict(named), oc.ema_momentum)
+        logs['grad_norm'] = apply_update(state, oc, sched)
         return logs
 
     return train_step
+
+
+def apply_update(state: TrainState, oc: OptimConfig, sched) -> torch.Tensor:
+    """After backward: fill missing gradients with zeros, clip the
+    trainable ones, set each group's lr from sched(step), step AdamW and
+    the EMA, count the step. Returns the raw gradients' global norm (frozen
+    parameters included), which the step logs as grad_norm."""
+    named = list(state.model.named_parameters())
+    for _, p in named:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    grad_norm = global_norm(p.grad for _, p in named)
+
+    trainable = []
+    for name, p in named:
+        if param_group(name) == 'frozen':
+            p.grad = None
+        else:
+            trainable.append(p.grad)
+    norm = global_norm(trainable)
+    factor = torch.where(norm < oc.grad_clip_norm, torch.ones_like(norm),
+                         oc.grad_clip_norm / norm)
+    torch._foreach_mul_(trainable, factor)
+
+    lr = sched(state.step)
+    for group in state.optimizer.param_groups:
+        group['lr'] = lr * group['lr_mult']
+    state.optimizer.step()
+    state.step += 1
+    if state.ema is not None:
+        ema_update(state.ema, dict(named), oc.ema_momentum)
+    return grad_norm

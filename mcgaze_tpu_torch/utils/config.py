@@ -3,14 +3,16 @@
 Two surfaces:
   1. Native configs: Python files assigning `model` / `optim` /
      `data_train` / `data_test` / `eval_cfg` dataclasses
-     (configs/multiclue_gaze/).
+     (configs/multiclue_gaze/; the query family's, configs/instblink/,
+     load through utils/query_config.py).
   2. Legacy mmdet-style dict configs (the reference's format, `_base_`
      inheritance and `_delete_`), parsed and translated.
 
 The shipped native configs import their dataclasses from the JAX package
 (`from mcgaze_tpu.models.mcgaze import ModelConfig`, ...). The loader runs
-a config file with those imports resolved to the port's own dataclasses
-and refuses any other import of the JAX package, so it never imports it.
+a config file with those imports (PORTED_CONFIG_MODULES) resolved to the
+port's own dataclasses and refuses any other import of the JAX package, so
+it never imports it.
 """
 from __future__ import annotations
 
@@ -30,8 +32,14 @@ from ..train.loop import OptimConfig
 # module that holds the same dataclasses
 PORTED_CONFIG_MODULES = {
     'mcgaze_tpu.data.dataset': 'mcgaze_tpu_torch.data.dataset',
+    'mcgaze_tpu.data.instblink_dataset':
+        'mcgaze_tpu_torch.data.instblink_dataset',
     'mcgaze_tpu.evaluation.driver': 'mcgaze_tpu_torch.evaluation.driver',
+    'mcgaze_tpu.evaluation.instblink_driver':
+        'mcgaze_tpu_torch.evaluation.instblink_driver',
     'mcgaze_tpu.models.mcgaze': 'mcgaze_tpu_torch.models.mcgaze',
+    'mcgaze_tpu.models.query_detector':
+        'mcgaze_tpu_torch.models.query_detector',
     'mcgaze_tpu.train.loop': 'mcgaze_tpu_torch.train.loop',
 }
 

@@ -1,7 +1,9 @@
 """Weights across packages: the JAX variables tree -> the port's state dict.
 
 `jax_variables_to_state_dict` is the exact inverse of
-mcgaze_tpu/utils/torch_convert.py::convert_mcgaze_checkpoint_dict. It takes
+mcgaze_tpu/utils/torch_convert.py::convert_mcgaze_checkpoint_dict, and
+`jax_query_variables_to_state_dict` of convert_query_checkpoint_dict (the
+InstBlink query detector: the same rules plus its blink heads). Each takes
 the JAX `{'params', 'stats'}` tree as nested dicts of numpy arrays and
 returns the reference mmdet names the port's modules use:
   * flax Conv kernel (H, W, I, O)  -> Conv weight (O, I, H, W)
@@ -9,8 +11,8 @@ returns the reference mmdet names the port's modules use:
   * attention/qkv                  -> attention.attn.in_proj_{weight,bias}
   * FrozenBatchNorm scale/bias + stats mean/var
                                    -> weight/bias/running_mean/running_var
-`clean_reference_state_dict` prepares a reference .pth's state dict for
-`load_state_dict(strict=True)`.
+`clean_reference_state_dict` and `clean_reference_query_state_dict` prepare
+a reference .pth's state dict for `load_state_dict(strict=True)`.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 _RULES = (
     (r'^bbox_head_(\d+)/', r'roi_head.bbox_head.\1/'),
     (r'^gaze_head_(\d+)/', r'roi_head.gaze_head.\1/'),
+    (r'^blink_head_(\d+)/', r'roi_head.blink_head.\1/'),
     (r'^init_proposal_(bboxes|features)$', r'rpn_head.init_proposal_\1'),
     (r'/layer(\d)_(\d+)/', r'/layer\1/\2/'),
     (r'/downsample_conv$', r'/downsample/0'),
@@ -35,10 +38,11 @@ _RULES = (
     (r'/ffn_fc2$', r'/ffn/layers/1'),
     (r'/cls_tower/', r'/cls_fcs/'),
     (r'/reg_tower/', r'/reg_fcs/'),
+    (r'/blink_tower/', r'/blink_fcs/'),
 )
 # tower layers: fc{i} -> {3i}, ln{i} -> {3i+1}
-_TOWER = re.compile(r'/(cls_fcs|reg_fcs|gaze_\w+_fcs|gaze_\w+_confidence)'
-                    r'/(fc|ln)(\d+)$')
+_TOWER = re.compile(r'/(cls_fcs|reg_fcs|blink_fcs|gaze_\w+_fcs'
+                    r'|gaze_\w+_confidence)/(fc|ln)(\d+)$')
 
 
 def _flatten(tree, prefix=''):
@@ -93,6 +97,11 @@ def jax_variables_to_state_dict(variables: dict) -> dict:
             for k, v in sd.items()}
 
 
+# The query detector's tree uses the same module names plus blink_head_{s}
+# (blink_tower -> blink_fcs), which the rules above cover.
+jax_query_variables_to_state_dict = jax_variables_to_state_dict
+
+
 def _benign(key: str) -> bool:
     """Reference keys the port has no slot for, by design: BN bookkeeping
     and BBoxHead's dead default heads (the same set torch_convert.py
@@ -111,4 +120,18 @@ def clean_reference_state_dict(sd: dict) -> dict:
         k = k[len('module.'):] if k.startswith('module.') else k
         if not _benign(k):
             out[k] = torch.as_tensor(v)
+    return out
+
+
+def clean_reference_query_state_dict(sd: dict) -> dict:
+    """A reference InstBlink checkpoint's state dict -> tensors the port's
+    QueryDetector loads with strict=True: strips a 'module.' prefix, renames
+    the pre-rewrite 'mask_head' to 'blink_head' (as init_detector does on
+    load) and drops the BN bookkeeping. fc_cls / fc_reg are this model's
+    heads, so nothing else is dropped."""
+    out = {}
+    for k, v in sd.items():
+        k = k[len('module.'):] if k.startswith('module.') else k
+        if not k.endswith('num_batches_tracked'):
+            out[k.replace('mask_head', 'blink_head')] = torch.as_tensor(v)
     return out

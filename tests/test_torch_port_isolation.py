@@ -44,7 +44,13 @@ def test_port_imports_no_jax():
                  'tools.deployment.test_server',
                  'tools.deployment.export_model',
                  'tools.model_converters.publish_model', 'models.yolov5',
-                 'demo.head_det', 'demo.gaze_demo'):
+                 'demo.head_det', 'demo.gaze_demo',
+                 'utils.query_config', 'models.query_detector',
+                 'utils.convert', 'evaluation.forward',
+                 'evaluation.track_eval', 'data.instblink_dataset',
+                 'evaluation.instblink_driver', 'tools.test_instblink',
+                 'train.hungarian', 'train.query_criterion',
+                 'train.query_loop', 'tools.train_instblink'):
         assert f'mcgaze_tpu_torch.{name}' in walked, name
 
 

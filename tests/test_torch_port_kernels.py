@@ -239,6 +239,57 @@ def test_roi_align_kernel_r100(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('frames', [44, 88])
+def test_roi_align_kernel_instblink_shapes(cuda_device, frames):
+    """K1 in f32, identity form, at the InstBlink path's shapes: 100 RoIs
+    on each of 44 frames (a train step: 4 clips of 11) or 88 (an eval
+    launch: 8 windows of 11) of a 384x640 canvas, C=256."""
+    rng = np.random.RandomState(frames)
+    feats = tuple(torch.from_numpy(rng.randn(
+        frames, 384 // s, 640 // s, 256).astype(np.float32)).to(cuda_device)
+        for s in (4, 8, 16, 32))
+    size = rng.choice([24.0, 70.0, 150.0, 300.0, 640.0], (frames, 100, 1))
+    xy = np.stack([rng.uniform(-60, 640, (frames, 100)),
+                   rng.uniform(-40, 384, (frames, 100))], -1)
+    rois = np.concatenate([xy, xy + size * rng.uniform(0.6, 1.4, (
+        frames, 100, 2))], -1).astype(np.float32)
+    _check_k1(feats, torch.from_numpy(rois).to(cuda_device), None)
+
+
+@pytest.mark.cuda
+def test_query_detector_full_width_kernel_matches_plain(cuda_device):
+    """The InstBlink model at full width (R-50, C=256, 100 queries, 6
+    stages) on an 11-frame u8 clip of 640x360 frames on the 384x640
+    canvas, seeded random weights, f32 with TF32 off, through
+    chip_smoke.query_window_check: at every stage K1 against the plain
+    RoIAlign on the same inputs at 1e-5 of the largest feature, and the
+    stage head fed either within 1e-3; 6 K1 launches."""
+    from chip_smoke import query_window_check
+    from mcgaze_tpu_torch.models.query_detector import (QueryDetectorConfig,
+                                                        init_query_model)
+    cfg = QueryDetectorConfig()
+    model = init_query_model(cfg, seed=0, device=cuda_device)
+    rng = np.random.RandomState(0)
+    imgs = torch.zeros((11, 384, 640, 3), dtype=torch.uint8)
+    imgs[:, :360] = torch.from_numpy(rng.randint(0, 256, (11, 360, 640, 3),
+                                                 dtype=np.uint8))
+    whwh = torch.tensor([[640.0, 360.0, 640.0, 360.0]]).repeat(11, 1)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    before = roi_align_cuda.launch_count
+    try:
+        rows = query_window_check(model, imgs.to(cuda_device),
+                                  whwh.to(cuda_device), 11)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    assert len(rows) == cfg.num_stages
+    assert roi_align_cuda.launch_count == before + cfg.num_stages
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_roi_align_kernel_partial_last_round(cuda_device, dtype):
     """More RoIs than blocks, not a multiple: the persistent grid's last
