@@ -372,11 +372,10 @@ def e2e_err(x, y):
 
 # ------------------------------------------------------------------ phases
 
-def phase_kernel(device, timer):
-    from mcgaze_tpu_torch.ops import roi_align_cuda
-    from mcgaze_tpu_torch.ops.roi_align import roi_align_fpn_mm
-
-    rng = np.random.RandomState(0)
+def default_k1_cases():
+    """K1's cases on the paths before TeViT: the gaze eval shapes, R=100
+    bf16, the InstBlink train and eval shapes, l2cs at 448 px, the
+    serving and demo shapes."""
     sel = gaze_sel()
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -411,6 +410,18 @@ def phase_kernel(device, timer):
         cases.append(dict(shape=shape, img=(224, 224), u=window,
                           n=len(vsel), r=3,
                           dtype=dtype, fidx=vsel))
+    return cases
+
+
+def phase_kernel(device, timer, cases=None, phase='kernel', seed=0):
+    """K1 against the plain RoIAlign, its ms, plain ms and bound, at each
+    case (default: default_k1_cases)."""
+    from mcgaze_tpu_torch.ops import roi_align_cuda
+    from mcgaze_tpu_torch.ops.roi_align import roi_align_fpn_mm
+
+    rng = np.random.RandomState(seed)
+    if cases is None:
+        cases = default_k1_cases()
     results = []
     for cs in cases:
         feats = make_pyramid(rng, cs['u'], cs['img'], 256, device,
@@ -450,12 +461,13 @@ def phase_kernel(device, timer):
             flops=flops, library_ms=None))
         del feats, got
         torch.cuda.empty_cache()
-    emit('kernel', cases=results)
+    emit(phase, cases=results)
     return results
 
 
-def phase_kernel_bwd(device, timer):
-    """K3 against the plain version's autograd gradient at a random
+def phase_kernel_bwd(device, timer, cases=None, phase='kernel_bwd',
+                     seed=2):
+    """At each case (default: the gaze train shapes and R=100), K3 against the plain version's autograd gradient at a random
     cotangent G, and the adjoint identity <K1(F), G> = sum_l <F_l, K3(G)_l>
     in f64 sums at G = K1(F); two launches bitwise equal; handed memory
     the allocator last filled with NaN, every cell finite and the cells no
@@ -464,17 +476,18 @@ def phase_kernel_bwd(device, timer):
     from mcgaze_tpu_torch.ops import roi_align_cuda
     from mcgaze_tpu_torch.ops.roi_align import roi_align_fpn_mm
 
-    rng = np.random.RandomState(2)
+    rng = np.random.RandomState(seed)
     sel = gaze_sel()
-    cases = []
-    for dtype in (torch.float32, torch.bfloat16):
-        for form in ('identity', 'frame_idx'):
-            u = len(sel) if form == 'identity' else int(sel.max()) + 1
-            cases.append(dict(shape='gaze_train', img=(224, 224), u=u,
-                              n=len(sel), r=3, dtype=dtype,
-                              fidx=sel if form == 'frame_idx' else None))
-        cases.append(dict(shape='query_r100', img=(384, 640), u=44, n=44,
-                          r=100, dtype=dtype, fidx=None))
+    if cases is None:
+        cases = []
+        for dtype in (torch.float32, torch.bfloat16):
+            for form in ('identity', 'frame_idx'):
+                u = len(sel) if form == 'identity' else int(sel.max()) + 1
+                cases.append(dict(shape='gaze_train', img=(224, 224), u=u,
+                                  n=len(sel), r=3, dtype=dtype,
+                                  fidx=sel if form == 'frame_idx' else None))
+            cases.append(dict(shape='query_r100', img=(384, 640), u=44,
+                              n=44, r=100, dtype=dtype, fidx=None))
     results = []
     for cs in cases:
         dtype = cs['dtype']
@@ -565,8 +578,26 @@ def phase_kernel_bwd(device, timer):
             flops=flops, library_ms=None))
         del feats, leaves, ref_out, ref, g
         torch.cuda.empty_cache()
-    emit('kernel_bwd', cases=results)
+    emit(phase, cases=results)
     return results
+
+
+def phase_tevit_kernel(device, timer):
+    """K1 and K3 at the TeViT shapes of the 384x640 canvas's pyramid, f32
+    identity form, 100 RoIs a frame: K1 at a train step's 4 clips x 5
+    frames (20) and an eval launch's 8 windows x 5 (40), K3 at 20; each
+    against its plain version at the kernel phases' tolerances, with ms,
+    plain ms and bound (phase_kernel, phase_kernel_bwd)."""
+    shapes = (('tevit_train', 20), ('tevit_eval', 40))
+    k1 = phase_kernel(device, timer, [
+        dict(shape=shape, img=(384, 640), u=frames, n=frames, r=100,
+             dtype=torch.float32, fidx=None) for shape, frames in shapes],
+        phase='tevit_kernel', seed=10)
+    k3 = phase_kernel_bwd(device, timer, [
+        dict(shape='tevit_train', img=(384, 640), u=20, n=20, r=100,
+             dtype=torch.float32, fidx=None)],
+        phase='tevit_kernel_bwd', seed=12)
+    return k1, k3
 
 
 def phase_slice(device, timer):
@@ -2246,6 +2277,8 @@ def phase_demo(device, opts=()):
 
 INSTBLINK_CONFIG = os.path.join(ROOT, 'configs', 'instblink',
                                 'instblink_r50_mpeblink.py')
+TEVIT_CONFIG = os.path.join(ROOT, 'configs', 'tevit',
+                            'tevit_msgshift_youtubevis.py')
 INSTBLINK_DECODE = 'npy stand-in for _decode_video (no OpenCV on this machine)'
 
 
@@ -2331,26 +2364,33 @@ def query_window_check(model, imgs, whwh, t):
     return rows
 
 
-def phase_instblink_train(device, opts=(), steps=3):
-    """The InstBlink R-50 config at full width (4 clips x 11 frames on the
-    384x640 canvas, 100 queries, 6 stages, f32, cuDNN TF32 on and matmul
-    TF32 off, the card's defaults) through the train CLI's main() with
-    --synthetic for `steps` steps, both launch counters reset before and
-    read after: 6 K1 and 6 K3 launches per step; finite losses. Then ms per
-    step (median of 4 after one warm step), the host ms of the matching
-    solves per step, peak memory, and one profiled step: device idle
-    share, K1 and K3 ms per step. `opts`: config overrides (a CPU rehearsal
-    passes a tiny model). Returns (launches, ckpt_<steps>.pth)."""
+def phase_instblink_train(device, opts=(), steps=3, config=INSTBLINK_CONFIG,
+                          phase='instblink_train'):
+    """A query-detector config at full width (InstBlink R-50: 4 clips x 11
+    frames; TeViT MsgShifT (`config=TEVIT_CONFIG`): 4 clips x 5 frames with
+    DropPath at its 0.1 ceiling; both on the 384x640 canvas, 100 queries, 6
+    stages, f32, cuDNN TF32 on and matmul TF32 off, the card's defaults)
+    through train_instblink's main() with --synthetic for `steps` steps,
+    both launch counters reset before and read after: 6 K1 and 6 K3
+    launches per step; finite losses. Then ms per step (median of 4 after
+    one warm step), the host ms of the matching solves per step, peak
+    memory, and one profiled step: device idle share, K1 and K3 ms per
+    step. `opts`: config overrides (a CPU rehearsal passes a tiny model).
+    Returns (launches, ckpt_<steps>.pth)."""
     import shutil
 
     from mcgaze_tpu_torch.ops import roi_align_cuda
     from mcgaze_tpu_torch.tools import train_instblink
-    from mcgaze_tpu_torch.train.query_loop import make_query_train_step
+    from mcgaze_tpu_torch.train.query_loop import (make_query_train_step,
+                                                   uses_droppath)
     from mcgaze_tpu_torch.utils.cfg_options import apply_overrides
     from mcgaze_tpu_torch.utils.query_config import load_query_config
 
-    cfg = apply_overrides(load_query_config(INSTBLINK_CONFIG), list(opts))
-    work_dir = os.path.join(ROOT, 'work_dirs', 'chip_smoke_instblink')
+    cfg = apply_overrides(load_query_config(config), list(opts))
+    if cfg.model.backbone == 'msgshift':
+        check(uses_droppath(cfg.model), f'{phase}: DropPath is off '
+              f'(msg_drop_path_rate={cfg.model.msg_drop_path_rate})')
+    work_dir = os.path.join(ROOT, 'work_dirs', f'chip_smoke_{phase}')
     shutil.rmtree(work_dir, ignore_errors=True)
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2360,7 +2400,7 @@ def phase_instblink_train(device, opts=(), steps=3):
     roi_align_cuda.bwd_launch_count = 0
     t0 = time.perf_counter()
     out = train_instblink.main(
-        [INSTBLINK_CONFIG, '--synthetic', '--device', str(device),
+        [config, '--synthetic', '--device', str(device),
          '--max-iters', str(steps), '--work-dir', work_dir,
          '--log-interval', '1'] + (['--cfg-options', *opts] if opts else []))
     torch.cuda.synchronize()
@@ -2369,13 +2409,13 @@ def phase_instblink_train(device, opts=(), steps=3):
                     k3=roi_align_cuda.bwd_launch_count)
     per_step = cfg.model.num_stages
     check(launches == dict(k1=per_step * steps, k3=per_step * steps),
-          f'instblink train path launched {launches}, expected {per_step} '
+          f'{phase} path launched {launches}, expected {per_step} '
           f'of K1 and of K3 per step over {steps} steps')
     hist = out['history']
     check(len(hist) == steps and all(
         np.isfinite([v for k, v in h.items() if k.startswith(
             ('stage', 'loss', 'grad_norm'))]).all() for h in hist),
-        f'instblink train losses not finite: '
+        f'{phase} losses not finite: '
         f'{[(h["loss"], h["grad_norm"]) for h in hist]}')
 
     # time: a fresh full batch, the card's defaults
@@ -2399,7 +2439,10 @@ def phase_instblink_train(device, opts=(), steps=3):
     k1 = sum(r[0] for r in rows if 'roi_align_fpn_kernel' in r[1])
     k3 = sum(r[0] for r in rows if 'roi_align_fpn_bwd_kernel' in r[1])
     clips, t = cfg.data_train.batch_size, cfg.model.clip_length
-    emit('instblink_train', config=os.path.relpath(INSTBLINK_CONFIG, ROOT),
+    emit(phase, config=os.path.relpath(config, ROOT),
+         backbone=cfg.model.backbone,
+         drop_path_rate=(cfg.model.msg_drop_path_rate
+                         if uses_droppath(cfg.model) else 0.0),
          clips_per_step=clips, frames_per_step=clips * t,
          canvas=list(cfg.data_train.canvas),
          queries=cfg.model.num_queries, stages=cfg.model.num_stages,
@@ -2425,10 +2468,13 @@ def phase_instblink_train(device, opts=(), steps=3):
     return launches, os.path.join(work_dir, f'ckpt_{steps}.pth')
 
 
-def write_instblink_dataset(root, lengths=(40, 23), hw=(360, 640), seed=11):
-    """Two MPEblink-form videos as .npy frames of hw, two face tracks each
-    (the second absent in frame 0) with two blink events; the COCO-VID
-    annotation file. Returns (ann path, frames root)."""
+def write_instblink_dataset(root, lengths=(40, 23), hw=(360, 640), seed=11,
+                            blinks=True, num_classes=1):
+    """Two videos as .npy frames of hw, two tracks each (the second absent
+    in frame 0); MPEblink form (blinks=True): one face category, two blink
+    events a track; YouTubeVIS form (blinks=False): num_classes categories,
+    the tracks of two of them, no blinks. Writes the COCO-VID annotation
+    file. Returns (ann path, frames root)."""
     rng = np.random.RandomState(seed)
     h, w = hw
     frames_root = os.path.join(root, 'frames')
@@ -2449,13 +2495,20 @@ def write_instblink_dataset(root, lengths=(40, 23), hw=(360, 640), seed=11):
             boxes = [None if inst == 1 and f == 0 else
                      [x0 + f, y0 + 0.5 * f, w * 0.2, h * 0.35]
                      for f in range(n)]
-            anns.append(dict(id=len(anns) + 1, video_id=vid, category_id=1,
-                             bboxes=boxes, blinks_binary=binary,
-                             blinks=events))
+            ann = dict(id=len(anns) + 1, video_id=vid, bboxes=boxes)
+            if blinks:
+                ann.update(category_id=1, blinks_binary=binary,
+                           blinks=events)
+            else:
+                ann['category_id'] = 1 + (vid + 3 * inst) % num_classes
+            anns.append(ann)
+    categories = ([dict(id=1, name='person_face')] if blinks else
+                  [dict(id=c, name=f'ytvis_{c}')
+                   for c in range(1, num_classes + 1)])
     ann = os.path.join(root, 'test.json')
     with open(ann, 'w') as f:
         json.dump(dict(videos=videos, annotations=anns,
-                       categories=[dict(id=1, name='person_face')]), f)
+                       categories=categories), f)
     return ann, frames_root + '/'
 
 
@@ -2477,18 +2530,21 @@ def npy_decode_instblink(self, paths):
             np.ones((len(frames), 4), np.float32))
 
 
-def phase_instblink_eval(device, checkpoint, opts=()):
-    """The InstBlink eval CLI at full width (config as in
+def phase_instblink_eval(device, checkpoint, opts=(), config=INSTBLINK_CONFIG,
+                         phase='instblink_eval', lengths=(40, 23)):
+    """A query-detector eval CLI at full width (config as in
     phase_instblink_train, f32, the card's defaults) with --eval on the
-    train phase's checkpoint, over two fabricated MPEblink-form videos (40
-    and 23 frames of 640x360, two face tracks with blink events) decoded
-    by npy_decode_instblink, the launch counters reset before and read
-    after: 6 K1 launches per forward (8 windows of 11 frames per launch),
-    no K3; every track finite with one box entry per frame and blink
-    probabilities in [0, 1]; frames/s, and the track and blink AP (random
-    weights: they only show that the scorer ran). Then one window of 11
-    frames, f32 with TF32 off, through query_window_check. Returns K1's
-    launches."""
+    train phase's checkpoint, over two fabricated videos of 40 and 23
+    frames of 640x360 decoded by npy_decode_instblink: MPEblink form for
+    InstBlink (two face tracks with blink events), YouTubeVIS form for
+    TeViT (40 categories, no blinks). The launch counters reset before and
+    read after: 6 K1 launches per forward (8 windows of the clip length
+    per launch), no K3; every track finite with one box entry per frame,
+    blink probabilities in [0, 1] where the model has a blink head and no
+    blink field where it has none; frames/s, and the AP lines (random
+    weights: they only show that the scorer ran; no blink line without
+    blinks). Then one window, f32 with TF32 off, through
+    query_window_check. Returns K1's launches."""
     import contextlib
     import shutil
 
@@ -2501,13 +2557,15 @@ def phase_instblink_eval(device, checkpoint, opts=()):
     from mcgaze_tpu_torch.utils.convert import clean_reference_query_state_dict
     from mcgaze_tpu_torch.utils.query_config import load_query_config
 
-    root = os.path.join(ROOT, 'work_dirs', 'chip_smoke_instblink_eval')
+    root = os.path.join(ROOT, 'work_dirs', f'chip_smoke_{phase}')
     shutil.rmtree(root, ignore_errors=True)
-    lengths = (40, 23)
-    ann, frames_root = write_instblink_dataset(root, lengths)
+    base = apply_overrides(load_query_config(config), list(opts))
+    blinks = base.model.with_blink
+    ann, frames_root = write_instblink_dataset(
+        root, lengths, blinks=blinks, num_classes=base.model.num_classes)
     data_opts = [f'data_test.ann_file={ann}',
                  f'data_test.img_prefix={frames_root}', *opts]
-    cfg = apply_overrides(load_query_config(INSTBLINK_CONFIG), data_opts)
+    cfg = apply_overrides(load_query_config(config), data_opts)
     ec = cfg.eval_cfg
     t = min(ec.clip_length, min(lengths))
     forwards = sum(-(-len(clip_windows(n, t, t - ec.overlap))
@@ -2522,7 +2580,7 @@ def phase_instblink_eval(device, checkpoint, opts=()):
         roi_align_cuda.bwd_launch_count = 0
         with contextlib.redirect_stdout(buf):
             out = test_instblink.main(
-                [INSTBLINK_CONFIG, checkpoint, '--out', out_json, '--eval',
+                [config, checkpoint, '--out', out_json, '--eval',
                  '--device', str(device), '--cfg-options', *data_opts])
         torch.cuda.synchronize()
         launches = dict(k1=roi_align_cuda.launch_count,
@@ -2531,10 +2589,10 @@ def phase_instblink_eval(device, checkpoint, opts=()):
         InstBlinkVideoEvaluator._decode_video = decode
     per_forward = cfg.model.num_stages
     check(launches == dict(k1=per_forward * forwards, k3=0),
-          f'instblink eval launched {launches}, expected {per_forward} K1 '
+          f'{phase} launched {launches}, expected {per_forward} K1 '
           f'per forward over {forwards} forwards and no K3')
     check(out['evaluator'].decoder == INSTBLINK_DECODE,
-          f'instblink eval decoded with {out["evaluator"].decoder}')
+          f'{phase} decoded with {out["evaluator"].decoder}')
     with open(out_json) as f:
         results = json.load(f)
     check(len(results) == len(lengths) * ec.max_per_img,
@@ -2542,16 +2600,26 @@ def phase_instblink_eval(device, checkpoint, opts=()):
     for r in results:
         n = lengths[r['video_id'] - 1]
         boxes = [b for b in r['bboxes'] if b is not None]
-        check(len(r['bboxes']) == len(r['blink_scores']) == n
-              and len(boxes) == n, f'track of video {r["video_id"]}: '
-              f'{len(r["bboxes"])} boxes for {n} frames')
+        check(len(r['bboxes']) == n and len(boxes) == n,
+              f'track of video {r["video_id"]}: {len(r["bboxes"])} boxes '
+              f'for {n} frames')
         check(np.isfinite(np.asarray(boxes, np.float64)).all()
-              and np.isfinite(r['score']), 'non-finite instblink track')
-        p = np.asarray(r['blink_scores'])
-        check(((p >= 0) & (p <= 1)).all(), 'blink probability outside [0, 1]')
+              and np.isfinite(r['score']), f'non-finite {phase} track')
+        check(1 <= r['category_id'] <= cfg.model.num_classes,
+              f'{phase}: category {r["category_id"]}')
+        if blinks:
+            p = np.asarray(r['blink_scores'])
+            check(len(p) == n and ((p >= 0) & (p <= 1)).all(),
+                  'blink probabilities: not one per frame in [0, 1]')
+        else:
+            check(not any(k.startswith('blink') for k in r),
+                  f'{phase}: a blink field in a track of a model without '
+                  f'a blink head: {sorted(r)}')
     ap_lines = [ln for ln in buf.getvalue().splitlines()
                 if 'track mAP' in ln or 'blink action' in ln]
-    check(len(ap_lines) == 2, f'instblink scorer printed {ap_lines}')
+    check(len(ap_lines) == (2 if blinks else 1)
+          and ('blink action' in ap_lines[-1]) == blinks,
+          f'{phase} scorer printed {ap_lines}')
 
     # one window of video 1, f32, TF32 off: K1 against the plain RoIAlign
     ckpt = torch.load(checkpoint, map_location='cpu', weights_only=False)
@@ -2577,8 +2645,9 @@ def phase_instblink_eval(device, checkpoint, opts=()):
     shutil.rmtree(root, ignore_errors=True)
     shutil.rmtree(os.path.dirname(checkpoint), ignore_errors=True)
     frames = sum(lengths)
-    emit('instblink_eval', config=os.path.relpath(INSTBLINK_CONFIG, ROOT),
-         decode=INSTBLINK_DECODE, videos=list(lengths),
+    emit(phase, config=os.path.relpath(config, ROOT),
+         backbone=cfg.model.backbone, decode=INSTBLINK_DECODE,
+         videos=list(lengths),
          frame_hw=[video['height'], video['width']],
          canvas=list(cfg.data_test.canvas), clip_length=t,
          overlap=ec.overlap, clip_batch=ec.clip_batch, forwards=forwards,
@@ -2587,9 +2656,193 @@ def phase_instblink_eval(device, checkpoint, opts=()):
          ap_lines=ap_lines,
          metrics_note='random weights: the AP only shows the scorer ran',
          window=window, tol_e2e=TOL_E2E, tol_f32_rel=TOL_F32_REL,
-         checkpoint=f'instblink_train phase {os.path.basename(checkpoint)}',
+         checkpoint=f'{phase.replace("eval", "train")} phase '
+                    f'{os.path.basename(checkpoint)}',
          card=nvidia_smi())
     return launches['k1']
+
+
+def free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        return sock.getsockname()[1]
+
+
+def phase_ddp(device, steps=2, opts=(), lengths=(60, 33)):
+    """Data parallel on the card under an NCCL process group of one
+    process (torchrun's environment, world size 1), f32 with TF32 off:
+    the gaze train CLI with --mesh 1,1 against the same CLI without a
+    group, on the same seed and synthetic batches: the model under
+    DistributedDataParallel on the NCCL backend, 4 K1 and 4 K3 a step,
+    the first loss equal within 1e-6 relative, every parameter after the
+    steps within 1e-5 of the tensor's largest |value|. NCCL's allreduce,
+    broadcast and allgather (17 MiB) on the card. Then tools.test under
+    the group and without it, on the non-DDP run's checkpoint and two
+    fabricated videos (.npy stand-in decoder): 4 K1 a forward and the same
+    results. Then ms per step of both models in turns, the card's
+    defaults. The group is left and the environment restored at the end.
+    `opts`: config overrides (a CPU rehearsal, on gloo, passes a tiny
+    model). Returns the launches of the runs under the group."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from mcgaze_tpu_torch.evaluation.driver import (VideoGazeEvaluator,
+                                                    clip_slices)
+    from mcgaze_tpu_torch.ops import roi_align_cuda
+    from mcgaze_tpu_torch.parallel import distributed as D
+    from mcgaze_tpu_torch.tools import test as test_cli
+    from mcgaze_tpu_torch.tools.train import main as train_main
+    from mcgaze_tpu_torch.tools.train import synthetic_batches
+    from mcgaze_tpu_torch.train.loop import make_train_step
+    from mcgaze_tpu_torch.utils.cfg_options import apply_overrides
+    from mcgaze_tpu_torch.utils.config import load_config
+
+    stages = apply_overrides(load_config(TRAIN_CONFIG),
+                             list(opts)).model.num_stages
+    root = os.path.join(ROOT, 'work_dirs', 'chip_smoke_ddp')
+    shutil.rmtree(root, ignore_errors=True)
+    ann, frames = write_cli_dataset(root, lengths)['gaze360']
+    check(not D._active(), 'a process group is up before the ddp phase')
+    launch_env = dict(MASTER_ADDR='127.0.0.1', MASTER_PORT=str(free_port()),
+                      WORLD_SIZE='1', RANK='0', LOCAL_RANK='0')
+    saved_env = {k: os.environ.get(k) for k in launch_env}
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # cuDNN's default backward algorithms add with atomics, so two runs of
+    # one step differ in their last bits; Adam's first steps turn such
+    # bits of a near-zero gradient into whole updates
+    torch.backends.cudnn.deterministic = True
+    decode = VideoGazeEvaluator._decode_video
+    VideoGazeEvaluator._decode_video = npy_decode
+
+    def counts():
+        return dict(k1=roi_align_cuda.launch_count,
+                    k3=roi_align_cuda.bwd_launch_count)
+
+    def train(tag, extra):
+        return train_main([TRAIN_CONFIG, '--synthetic', '--device',
+                           str(device), '--max-iters', str(steps),
+                           '--work-dir', os.path.join(root, tag),
+                           '--log-interval', '1'] + extra
+                          + (['--cfg-options', *opts] if opts else []))
+
+    def test(tag, ckpt):
+        path = os.path.join(root, f'results_{tag}.json')
+        out = test_cli.main([TRAIN_CONFIG, ckpt, '--json', ann, '--root',
+                             frames, '--out', path, '--device', str(device),
+                             '--cfg-options', 'eval_cfg.crop_ratio=None',
+                             *opts])
+        torch.cuda.synchronize()
+        with open(path) as f:
+            return out, json.load(f)
+
+    try:
+        plain = train('plain', [])
+        plain_results = test('plain', plain['checkpoint'])[1]
+        os.environ.update(launch_env)
+        roi_align_cuda.launch_count = 0
+        roi_align_cuda.bwd_launch_count = 0
+        t0 = time.perf_counter()
+        ddp = train('ddp', ['--mesh', '1,1'])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_launches = counts()
+        backend = 'nccl' if device.type == 'cuda' else 'gloo'
+        check(D._active() and dist.get_backend() == backend
+              and D.process_count() == 1, f'no {backend} group of one '
+              'process')
+        check(isinstance(ddp['state'].ddp,
+                         torch.nn.parallel.DistributedDataParallel),
+              'the train step did not run under DistributedDataParallel')
+        check(train_launches == dict(k1=stages * steps, k3=stages * steps),
+              f'ddp train launched {train_launches}, expected {stages} K1 '
+              f'and {stages} K3 per step')
+        loss_p, loss_d = plain['history'][0]['loss'], ddp['history'][0]['loss']
+        loss_rel = abs(loss_d - loss_p) / abs(loss_p)
+        check(loss_rel <= 1e-6, f'ddp first loss {loss_d} vs {loss_p}')
+        sp = plain['state'].model.state_dict()
+        sd = ddp['state'].model.state_dict()
+        param_err, worst = max(
+            ((sd[k].float() - v.float()).abs().max().item()
+             / max(v.float().abs().max().item(), 1e-12), k)
+            for k, v in sp.items())
+        check(param_err <= 1e-5, f'ddp parameters after {steps} steps: '
+              f'{worst} {param_err} > 1e-5')
+
+        # the collectives the multi-process paths use, on the card
+        x = torch.arange(6, dtype=torch.float32, device=device)
+        dist.all_reduce(x)
+        seed = torch.tensor([1234], dtype=torch.int64, device=device)
+        dist.broadcast(seed, src=0)
+        big = torch.full((17 << 20,), 7, dtype=torch.uint8, device=device)
+        gathered = [torch.empty_like(big)]
+        dist.all_gather(gathered, big)
+        torch.cuda.synchronize()
+        check(x.tolist() == list(range(6)) and int(seed) == 1234
+              and torch.equal(gathered[0], big), 'NCCL collectives')
+
+        roi_align_cuda.launch_count = 0
+        out, ddp_results = test('ddp', plain['checkpoint'])
+        test_launches = counts()['k1']
+        fwds = sum(-(-len(clip_slices(n, 7, 4)) // 8) for n in lengths)
+        check(test_launches == stages * fwds, f'ddp test launched '
+              f'{test_launches} K1, expected {stages} per forward over '
+              f'{fwds}')
+        check(ddp_results == plain_results, 'tools.test under the group '
+              'wrote other results than without it')
+
+        # ms per step, plain and under DDP in turns, on one fresh batch
+        # with the card's defaults (TF32 convolutions, cuDNN's own choice)
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cudnn.deterministic = False
+        cfg = apply_overrides(load_config(TRAIN_CONFIG), list(opts))
+        batch = {k: torch.from_numpy(v).to(device) for k, v in next(
+            synthetic_batches(cfg, seed=2)).items()}
+        step_fn = make_train_step(cfg.model, cfg.optim)
+        walls = dict(plain=[], ddp=[])
+        for name in ('plain', 'ddp', 'ddp', 'plain') * 3:
+            st = (plain if name == 'plain' else ddp)['state']
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            step_fn(st, batch)
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t1) * 1e3)
+        step_ms = {k: float(np.median(v[1:])) for k, v in walls.items()}
+    finally:
+        VideoGazeEvaluator._decode_video = decode
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+        D.shutdown_distributed()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    emit('ddp', backend=backend, world_size=1, steps=steps,
+         config=os.path.relpath(TRAIN_CONFIG, ROOT),
+         train_launches=train_launches, test_launches=test_launches,
+         first_loss=[loss_p, loss_d], first_loss_rel_err=loss_rel,
+         param_max_rel_err=param_err, param_worst=worst,
+         ddp_train_seconds=train_s,
+         step_seconds=[h['time'] for h in ddp['history']],
+         plain_step_seconds=[h['time'] for h in plain['history']],
+         test_seconds=out['seconds'], results_equal=True,
+         step_ms=step_ms, step_ms_all=walls,
+         step_ms_note='plain and DDP steps in turns on one batch, median '
+                      'of 5 after the first, TF32 convolutions',
+         clips_per_step=cfg.data_train.batch_size,
+         precision='float32, TF32 off, cuDNN deterministic',
+         card=nvidia_smi())
+    del plain, ddp, batch, step_fn
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(train=train_launches, test=test_launches)
 
 
 def main():
@@ -2645,6 +2898,13 @@ def main():
     demo_launches = phase_demo(device)
     ib_train_launches, ib_ckpt = phase_instblink_train(device)
     ib_eval_launches = phase_instblink_eval(device, ib_ckpt)
+    tevit_k1, tevit_k3 = phase_tevit_kernel(device, Timer(device))
+    torch.cuda.empty_cache()
+    tv_train_launches, tv_ckpt = phase_instblink_train(
+        device, config=TEVIT_CONFIG, phase='tevit_train')
+    tv_eval_launches = phase_instblink_eval(
+        device, tv_ckpt, config=TEVIT_CONFIG, phase='tevit_eval')
+    ddp_launches = phase_ddp(device)
 
     # each kernel beside the case of the path that runs it: K1 at the eval
     # shape (bf16, frame_idx), K3 at the training shape (f32, identity), K4
@@ -2666,9 +2926,16 @@ def main():
               bound_by=('operations' if all(c['bound_by'] == 'operations'
                                             for c in k5_bf16) else 'bytes'))
 
-    def line(name, source, replaces, launches, case):
+    def tevit_cases(cases):
+        return dict(tevit_cases=[
+            {k: c[k] for k in ('shape', 'dtype', 'form', 'n', 'r',
+                               'max_abs_err', 'tol', 'ms', 'plain_ms',
+                               'bound_ms', 'bound_by')} for c in cases])
+
+    def line(name, source, replaces, launches, case, more=None):
         extra = {k: case[k] for k in ('plain_blocks_ms', 'launch_floor_ms')
                  if k in case}
+        extra.update(more or {})
         return dict(
             name=name, route='cuda', source=source, replaces=replaces,
             launches=sum(launches.values()), launches_by_path=launches,
@@ -2685,12 +2952,20 @@ def main():
                   train=train_launches['k1'], **cli_launches,
                   serve=serve_launches, export=export_launches,
                   demo=demo_launches, instblink_eval=ib_eval_launches,
-                  instblink_train=ib_train_launches['k1']), k1),
+                  instblink_train=ib_train_launches['k1'],
+                  tevit_train=tv_train_launches['k1'],
+                  tevit_eval=tv_eval_launches,
+                  ddp_train=ddp_launches['train']['k1'],
+                  ddp_test=ddp_launches['test']), k1,
+             tevit_cases(tevit_k1)),
         line('roi_align_fpn_bwd',
              'mcgaze_tpu_torch/csrc/roi_align_fpn_bwd.cu',
              'mcgaze_tpu/ops/roi_align_pallas.py:772',
              dict(train=train_launches['k3'],
-                  instblink_train=ib_train_launches['k3']), k3),
+                  instblink_train=ib_train_launches['k3'],
+                  tevit_train=tv_train_launches['k3'],
+                  ddp_train=ddp_launches['train']['k3']), k3,
+             tevit_cases(tevit_k3)),
         line('fused_stqi_attention',
              'mcgaze_tpu_torch/csrc/stqi_attention.cu',
              'mcgaze_tpu/ops/stqi_attention.py:110',

@@ -15,8 +15,8 @@ Decoding from image paths goes through the native C++ loader
 (data/native_loader.py: decode, crop, resize, pad and, for a forward that
 declares accepts_uint8, raw u8 frames) and falls back to cv2 and the
 Python transforms where that library cannot be built; `decoder` records
-which one ran. Videos run on the forward's one device (several devices
-and processes: ROADMAP Queue 1, item 12).
+which one ran. Videos round-robin over the cards of the process
+(`eval_devices`), each video's frames and forwards on one card.
 """
 from __future__ import annotations
 
@@ -121,6 +121,22 @@ def preprocess_frames_u8(frames: list, cfg: EvalConfig, ratios=None):
         whwh.append(np.array([w, h, w, h], np.float32))
         sfs.append(sf)
     return np.stack(imgs), np.stack(whwh), np.stack(sfs)
+
+
+def eval_devices(forward, devices=None) -> list:
+    """The devices videos round-robin over: `devices` when given; else, for
+    a forward on a card in a single-process run, every visible card; else
+    the forward's own device (one process per card under a launcher; a
+    CPU forward; None for a forward without `.device`)."""
+    if devices is not None:
+        return [torch.device(d) for d in devices]
+    device = getattr(forward, 'device', None)
+    if device is not None and device.type == 'cuda':
+        from ..parallel.distributed import process_count
+        if process_count() == 1 and torch.cuda.device_count() > 1:
+            return [torch.device('cuda', i)
+                    for i in range(torch.cuda.device_count())]
+    return [device]
 
 
 def pack_outputs(boxes, scores, gazes):
@@ -244,20 +260,25 @@ class VideoGazeEvaluator:
         imgs, whwh, sfs, f = self._decode_video(paths, video_id)
         return self._run_preprocessed(imgs, whwh, sfs, f, video_id)
 
-    def run_videos_from_paths(self, videos, prefetch: int = 4):
+    def run_videos_from_paths(self, videos, prefetch: int = 4,
+                              devices=None):
         """Pipelined eval over (video_id, paths) pairs: a background thread
         decodes the next videos and, when the forward has a `.device`,
         copies each one's frames there (pinned memory, non-blocking) while
-        the current video computes. Yields per-video result dicts in input
-        order."""
+        the current video computes. Videos round-robin over `devices`
+        (eval_devices; default every visible card of a single-process run),
+        up to one video in flight per device, the forward running where
+        the frames lie; with one device this is the one-device path. Yields
+        per-video result dicts in input order."""
         from .pipeline import run_pipelined
 
-        device = getattr(self.forward, 'device', None)
+        devices = eval_devices(self.forward, devices)
 
         def produce(i, vid, paths):
             t0 = time.perf_counter()
             imgs, whwh, sfs, f = self._decode_video(paths, vid)
             self._phase('decode', t0)
+            device = devices[i % len(devices)]
             if device is not None:
                 t0 = time.perf_counter()
                 imgs = to_device(imgs, device)
@@ -274,7 +295,7 @@ class VideoGazeEvaluator:
             return self._finish_video(sub, sfs, f, vid)
 
         yield from run_pipelined(videos, produce, submit, finish,
-                                 prefetch=prefetch)
+                                 prefetch=prefetch, depth=len(devices))
 
     def run_video(self, frames: list, video_id: int) -> dict:
         cfg = self.cfg

@@ -9,12 +9,19 @@ over it, both run under torch.inference_mode():
       reading frame sel[slot] (the RoIAlign kernel's frame_idx form).
 `bind_forward` adapts them to the driver's forward_fn signature.
 
-For the query family (InstBlink), `make_query_eval_forward` and
+For the query family (InstBlink, TeViT), `make_query_eval_forward` and
 `bind_query_forward` give InstBlinkVideoEvaluator its forward: u8 frames
 normalised on the device, the top-k track selection on the device, the
 outputs left there for the driver's one readback per video.
+
+Several cards: the drivers place each video's frames on one card in turn;
+a bound forward runs where its inputs already lie (a tensor on a device of
+the bound device's type stays there) and the forwards run a copy of the
+model made once per card (`ModelReplicas`).
 """
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -41,6 +48,23 @@ def device_normalize(imgs: torch.Tensor, whwh: torch.Tensor) -> torch.Tensor:
     return out * valid[..., None]
 
 
+class ModelReplicas:
+    """The model on its own device and a copy of it on each other device a
+    forward is asked to run on, made at the first such call."""
+
+    def __init__(self, model: torch.nn.Module):
+        self.model = model
+        self._by_device = {}
+
+    def on(self, device: torch.device) -> torch.nn.Module:
+        home = next(self.model.parameters()).device
+        if device == home:
+            return self.model
+        if device not in self._by_device:
+            self._by_device[device] = copy.deepcopy(self.model).to(device)
+        return self._by_device[device]
+
+
 def _last_stage(out):
     last = out['stages'][-1]
     return (last['boxes'], torch.sigmoid(last['cls_logits'])[..., 0],
@@ -54,19 +78,22 @@ def make_eval_forward(model_cfg: ModelConfig, seed: int = 0,
     weights)."""
     if model is None:
         model = init_model(model_cfg, seed, device)
+    replicas = ModelReplicas(model)
 
     @torch.inference_mode()
     def fwd(imgs, whwh, t):
         imgs = device_normalize(imgs, whwh)
-        return _last_stage(model(imgs, whwh, clip_length=t))
+        return _last_stage(replicas.on(imgs.device)(imgs, whwh,
+                                                    clip_length=t))
 
     @torch.inference_mode()
     def fwd_dedup(frames, sel, whwh_u, t):
+        m = replicas.on(frames.device)
         frames = device_normalize(frames, whwh_u)
-        feats = model.extract_features(frames)
+        feats = m.extract_features(frames)
         sel = sel.to(torch.int32)
-        out = model.run_heads(feats, whwh_u[sel.long()], clip_length=t,
-                              frame_idx=sel)
+        out = m.run_heads(feats, whwh_u[sel.long()], clip_length=t,
+                          frame_idx=sel)
         return _last_stage(out)
 
     return model, fwd, fwd_dedup
@@ -83,23 +110,34 @@ def to_device(x, device: torch.device) -> torch.Tensor:
     return t.to(device, non_blocking=True)
 
 
+def run_device(x, device: torch.device) -> torch.device:
+    """Where a bound forward runs on input x: the device x lies on when it
+    is a tensor on a device of `device`'s type (a driver placed it there),
+    else `device`."""
+    if isinstance(x, torch.Tensor) and x.device.type == device.type:
+        return x.device
+    return device
+
+
 def bind_forward(fwd, device, fwd_dedup=None):
     """The driver's forward_fn: forward(imgs, whwh, t) with host or device
-    inputs, outputs left on the device. Marks itself accepts_uint8 (the
-    forwards normalise u8 on the device) and carries `.device`; with
-    fwd_dedup it also carries `.dedup(frames, sel, whwh_u, t)`, which the
-    driver prefers (EvalConfig.dedup_frames)."""
+    inputs, outputs left on the device the forward ran on (run_device).
+    Marks itself accepts_uint8 (the forwards normalise u8 on the device)
+    and carries `.device`; with fwd_dedup it also carries `.dedup(frames,
+    sel, whwh_u, t)`, which the driver prefers (EvalConfig.dedup_frames)."""
     device = resolve_device(device)
 
     def forward(imgs, whwh, t):
-        return fwd(to_device(imgs, device), to_device(whwh, device), t)
+        dev = run_device(imgs, device)
+        return fwd(to_device(imgs, dev), to_device(whwh, dev), t)
 
     forward.accepts_uint8 = True
     forward.device = device
     if fwd_dedup is not None:
         def dedup(frames, sel, whwh_u, t):
-            return fwd_dedup(to_device(frames, device), to_device(sel, device),
-                             to_device(whwh_u, device), t)
+            dev = run_device(frames, device)
+            return fwd_dedup(to_device(frames, dev), to_device(sel, dev),
+                             to_device(whwh_u, dev), t)
 
         forward.dedup = dedup
     return forward
@@ -113,11 +151,13 @@ def make_query_eval_forward(model, mc):
     """
     from ..models.query_detector import topk_tracks, topk_tracks_batched
 
+    replicas = ModelReplicas(model)
+
     @torch.inference_mode()
     def fwd(imgs, whwh):
         imgs = device_normalize(imgs, whwh)
         t = imgs.shape[0]
-        out = model(imgs, whwh, clip_length=t)
+        out = replicas.on(imgs.device)(imgs, whwh, clip_length=t)
         return topk_tracks(out['stages'][-1], t, mc.max_per_img,
                            mc.num_classes)
 
@@ -125,7 +165,7 @@ def make_query_eval_forward(model, mc):
     def fwd_batched(imgs, whwh, kq):
         imgs = device_normalize(imgs, whwh)
         t = imgs.shape[0] // kq
-        out = model(imgs, whwh, clip_length=t)
+        out = replicas.on(imgs.device)(imgs, whwh, clip_length=t)
         return topk_tracks_batched(out['stages'][-1], kq, t,
                                    mc.max_per_img, mc.num_classes)
 
@@ -139,11 +179,12 @@ def bind_query_forward(fwd, fwd_batched, device):
     device = resolve_device(device)
 
     def forward(imgs, whwh):
-        return fwd(to_device(imgs, device), to_device(whwh, device))
+        dev = run_device(imgs, device)
+        return fwd(to_device(imgs, dev), to_device(whwh, dev))
 
     def batched(imgs, whwh, kq):
-        return fwd_batched(to_device(imgs, device), to_device(whwh, device),
-                           kq)
+        dev = run_device(imgs, device)
+        return fwd_batched(to_device(imgs, dev), to_device(whwh, dev), kq)
 
     forward.batched = batched
     forward.accepts_uint8 = True

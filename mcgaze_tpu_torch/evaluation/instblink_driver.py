@@ -18,8 +18,8 @@ them:
      category by majority vote, per-frame xywh boxes, per-frame blink
      probabilities and the converted blink events.
 
-One device: the JAX driver's round-robin over several devices is ROADMAP
-Queue 1, item 12.
+Videos round-robin over the cards of the process (driver.py::eval_devices),
+each video's frames and forwards on one card.
 """
 from __future__ import annotations
 
@@ -31,7 +31,7 @@ import torch
 from scipy.optimize import linear_sum_assignment
 
 from ..data import transforms as T
-from .driver import _take, clip_slices
+from .driver import _take, clip_slices, eval_devices
 from .forward import to_device
 from .track_eval import blinks_to_events
 
@@ -142,18 +142,21 @@ class InstBlinkVideoEvaluator:
         self.decoder = 'native'
         return imgs, whwh, sfs
 
-    def run_videos_from_paths(self, videos, prefetch: int = 4):
+    def run_videos_from_paths(self, videos, prefetch: int = 4,
+                              devices=None):
         """Pipelined eval over (video_id, paths) pairs: a background thread
         decodes the next videos and, where the forward has a `.device`,
-        copies their frames there while the current video computes. Yields
-        each video's list of track dicts in input order, as run_video
-        gives them on the same frames."""
+        copies their frames there while the current video computes. Videos
+        round-robin over `devices` (driver.py::eval_devices), up to one in
+        flight per device. Yields each video's list of track dicts in input
+        order, as run_video gives them on the same frames."""
         from .pipeline import run_pipelined
 
-        device = getattr(self.forward, 'device', None)
+        devices = eval_devices(self.forward, devices)
 
         def produce(i, vid, paths):
             imgs, whwh, sfs = self._decode_video(paths)
+            device = devices[i % len(devices)]
             if device is not None:
                 imgs, whwh = to_device(imgs, device), to_device(whwh, device)
             return vid, (imgs, whwh, sfs)
@@ -167,7 +170,7 @@ class InstBlinkVideoEvaluator:
             return self._finish_video(sub, sfs, vid)
 
         yield from run_pipelined(videos, produce, submit, finish,
-                                 prefetch=prefetch)
+                                 prefetch=prefetch, depth=len(devices))
 
     def _submit_video(self, frames, whwh):
         """Enqueue every window of one video and pack the outputs (tensors)

@@ -12,7 +12,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-# torch/mmcv LayerNorm epsilon, everywhere (mcgaze_tpu/models/heads.py)
+# torch/mmcv LayerNorm epsilon of the heads (mcgaze_tpu/models/heads.py);
+# the MsgShifT backbone passes its own 1e-6 (models/msgshift.py)
 LN_EPS = 1e-5
 
 
@@ -36,8 +37,8 @@ class LayerNorm(nn.LayerNorm):
     f32, y rounded once to the input's dtype. (torch on the card refuses
     a bf16 input with f32 parameters, so x is cast up first.)"""
 
-    def __init__(self, features: int):
-        super().__init__(features, eps=LN_EPS)
+    def __init__(self, features: int, eps: float = LN_EPS):
+        super().__init__(features, eps=eps)
 
     def forward(self, x):
         return F.layer_norm(x.float(), self.normalized_shape, self.weight,

@@ -1,7 +1,8 @@
 """The TeViT / InstBlink query detector, counterpart of
 mcgaze_tpu/models/query_detector.py:
 
-    frames (N, H, W, 3) -> ResNet-50 -> FPN -> 100 learned proposals
+    frames (N, H, W, 3) -> ResNet-50 (InstBlink) or MsgShifT (TeViT)
+      -> FPN -> 100 learned proposals
       -> num_stages x [FPN RoIAlign -> GenericSTQIHead -> delta decode
                        -> BlinkHead on the post-attention feature]
 
@@ -12,7 +13,9 @@ is a chained 2x(Linear-LN-ReLU) tower and fc_blink; with
 fc_blink(ReLU(x)) and leaves the tower unused (the tower stays declared, so
 one state dict loads either way). The state dict's keys are the reference
 mmdet names (backbone.*, neck.*, rpn_head.*, roi_head.bbox_head.{s}.*,
-roi_head.blink_head.{s}.blink_fcs.{0,1,3,4}, fc_blink).
+roi_head.blink_head.{s}.blink_fcs.{0,1,3,4}, fc_blink). MsgShifT's DropPath
+runs only in a forward given train=True and a torch.Generator for its
+masks (models/msgshift.py).
 
 RoIAlign: roi_impl 'auto' launches the CUDA kernel on a CUDA device (its
 gradient is the backward kernel) and takes the plain version on the CPU;
@@ -35,17 +38,17 @@ from .fpn import FPN
 from .heads import _FFN, DynamicConv, MultiheadAttention, mlp_tower
 from .layers import LayerNorm, Linear, init_weights
 from .mcgaze import DTYPES, _RPNHead
+from .msgshift import MsgShifT
 from .resnet import ResNet
 
-MSGSHIFT = ('ROADMAP Queue 1, item 13b (the MsgShifT backbone of the TeViT '
-            'configuration)')
+RESNET50_CHANNELS = (256, 512, 1024, 2048)
 
 
 @dataclasses.dataclass(frozen=True)
 class QueryDetectorConfig:
     """The JAX QueryDetectorConfig's fields, with the same defaults (the
     InstBlink R-50 model on MPEblink and its losses and matcher)."""
-    backbone: str = 'resnet50'           # 'resnet50' ('msgshift': 13b)
+    backbone: str = 'resnet50'           # 'resnet50' | 'msgshift'
     num_stages: int = 6
     clip_length: int = 11
     num_queries: int = 100
@@ -169,24 +172,40 @@ class QueryDetector(nn.Module):
 
     def __init__(self, cfg: QueryDetectorConfig):
         super().__init__()
-        if cfg.backbone == 'msgshift':
-            raise NotImplementedError(
-                f"backbone='msgshift' is not ported yet: {MSGSHIFT}")
-        if cfg.backbone != 'resnet50':
-            raise ValueError(f'backbone={cfg.backbone!r}: '
-                             "'resnet50' ('msgshift' is not ported yet)")
         if cfg.roi_impl not in ('auto', 'mm'):
             raise ValueError(f"roi_impl={cfg.roi_impl!r}: 'auto' or 'mm'")
         self.cfg = cfg
-        self.backbone = ResNet(50)
-        self.neck = FPN(out_channels=cfg.channels)
+        if cfg.backbone == 'msgshift':
+            self.backbone = MsgShifT(num_msg_tokens=cfg.msg_num_tokens,
+                                     shift_strides=cfg.msg_shift_strides,
+                                     drop_path_rate=cfg.msg_drop_path_rate)
+            widths = self.backbone.stage_channels
+        elif cfg.backbone == 'resnet50':
+            self.backbone = ResNet(50)
+            widths = RESNET50_CHANNELS
+        else:
+            raise ValueError(f'backbone={cfg.backbone!r}: '
+                             "'resnet50' or 'msgshift'")
+        self.neck = FPN(in_channels=widths, out_channels=cfg.channels)
         self.rpn_head = _RPNHead(cfg.num_queries, cfg.channels)
         self.roi_head = _QueryRoIHead(cfg)
 
-    def extract_features(self, imgs: torch.Tensor) -> tuple:
-        """(N, H, W, 3) normalised NHWC frames -> 4 NHWC FPN levels."""
+    def extract_features(self, imgs: torch.Tensor,
+                         clip_length: int | None = None, train: bool = False,
+                         generator: torch.Generator | None = None) -> tuple:
+        """(N, H, W, 3) normalised NHWC frames -> 4 NHWC FPN levels.
+        MsgShifT rolls its messengers over clips of clip_length frames;
+        train=True turns its DropPath on, drawing from `generator`."""
         x = imgs.to(self.cfg.torch_dtype).permute(0, 3, 1, 2)
-        return self.neck(self.backbone(x))
+        if self.cfg.backbone != 'msgshift':
+            return self.neck(self.backbone(x))
+        drop = train and self.cfg.msg_drop_path_rate > 0.0
+        if drop and generator is None:
+            raise ValueError('MsgShifT DropPath (train=True) needs a '
+                             'torch.Generator for its masks')
+        return self.neck(self.backbone(
+            x, clip_length or self.cfg.clip_length,
+            generator if drop else None))
 
     def run_heads(self, feats: tuple, img_whwh: torch.Tensor,
                   clip_length: int | None = None) -> dict:
@@ -226,12 +245,15 @@ class QueryDetector(nn.Module):
         return dict(stages=stages)
 
     def forward(self, imgs: torch.Tensor, img_whwh: torch.Tensor,
-                clip_length: int | None = None) -> dict:
+                clip_length: int | None = None, train: bool = False,
+                generator: torch.Generator | None = None) -> dict:
         """imgs (N, H, W, 3) normalised, N = B*T; img_whwh (N, 4). Returns
         {'stages': [dict(cls_logits (N, Q, C), boxes (N, Q, 4) absolute
-        xyxy, blink_logits (N, Q) when with_blink)]}."""
-        return self.run_heads(self.extract_features(imgs), img_whwh,
-                              clip_length)
+        xyxy, blink_logits (N, Q) when with_blink)]}. train and generator:
+        MsgShifT's DropPath (extract_features)."""
+        return self.run_heads(
+            self.extract_features(imgs, clip_length, train, generator),
+            img_whwh, clip_length)
 
 
 def _topk(scores: torch.Tensor, k: int):
@@ -296,4 +318,8 @@ def init_query_model(cfg: QueryDetectorConfig, seed: int = 0,
             torch.tensor([0.5, 0.5, 1.0, 1.0]).expand(cfg.num_queries, 4))
         model.rpn_head.init_proposal_features.weight.normal_(
             0.0, 1.0, generator=gen)
+        if cfg.backbone == 'msgshift':
+            # flax's truncated_normal(0.02) of the JAX MsgShifT
+            nn.init.trunc_normal_(model.backbone.msg_tokens, std=0.02,
+                                  a=-0.04, b=0.04, generator=gen)
     return model.to(device).eval()

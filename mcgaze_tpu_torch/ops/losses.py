@@ -58,9 +58,15 @@ def giou_loss(pred: torch.Tensor, target: torch.Tensor,
     return loss.sum() / avg_factor
 
 
+def _positives(weight: torch.Tensor, avg_factor):
+    """The mean's denominator: the positive rows, at least 1, unless the
+    caller gives one (a count over every process)."""
+    return weight.sum().clamp_min(1.0) if avg_factor is None else avg_factor
+
+
 def arccos_gaze_loss(pred: torch.Tensor, target: torch.Tensor,
-                     weight: torch.Tensor, eps: float = 1e-6
-                     ) -> torch.Tensor:
+                     weight: torch.Tensor, eps: float = 1e-6,
+                     avg_factor=None) -> torch.Tensor:
     """Mean angle between pred and target (N, 3) over the rows with
     weight 1; 0 when no row is positive."""
     denom = (torch.linalg.norm(pred, dim=-1) *
@@ -68,19 +74,19 @@ def arccos_gaze_loss(pred: torch.Tensor, target: torch.Tensor,
     sim = (pred * target).sum(-1) / denom.clamp_min(eps)
     sim = sim.clamp(-1.0 + eps, 1.0 - eps)
     angle = torch.arccos(sim)
-    return (angle * weight).sum() / weight.sum().clamp_min(1.0)
+    return (angle * weight).sum() / _positives(weight, avg_factor)
 
 
 def cos_gaze_loss(pred: torch.Tensor, target: torch.Tensor,
-                  weight: torch.Tensor) -> torch.Tensor:
+                  weight: torch.Tensor, avg_factor=None) -> torch.Tensor:
     """Mean (1 - cos) over positive rows; pred/target arrive unit-norm."""
     cos = (pred * target).sum(-1).clamp(-1.0, 1.0)
-    return ((1.0 - cos) * weight).sum() / weight.sum().clamp_min(1.0)
+    return ((1.0 - cos) * weight).sum() / _positives(weight, avg_factor)
 
 
 def pinball_gaze_loss(pred: torch.Tensor, target: torch.Tensor,
                       weight: torch.Tensor, var=0.0,
-                      q: float = 0.1) -> torch.Tensor:
+                      q: float = 0.1, avg_factor=None) -> torch.Tensor:
     """Quantile loss at q and 1 - q, each a mean over every element of the
     positive rows. The gaze head predicts no `var`, so it is 0 and the two
     terms collapse to a plain L1 mean."""
@@ -89,13 +95,13 @@ def pinball_gaze_loss(pred: torch.Tensor, target: torch.Tensor,
     q_hi = target - (pred + var)
     lo = torch.maximum(q * q_lo, (q - 1.0) * q_lo)
     hi = torch.maximum((1.0 - q) * q_hi, -q * q_hi)
-    denom = weight.sum().clamp_min(1.0) * d
+    denom = _positives(weight, avg_factor) * d
     return ((lo * weight[:, None]).sum() +
             (hi * weight[:, None]).sum()) / denom
 
 
 # config-selectable per-clue gaze losses: (pred (N,3), target (N,3),
-# weight (N,)) -> scalar
+# weight (N,), avg_factor=None) -> scalar
 GAZE_LOSSES = {
     'arccos': arccos_gaze_loss,
     'cos': cos_gaze_loss,
@@ -103,11 +109,13 @@ GAZE_LOSSES = {
 }
 
 
-def temporal_gaze_loss(pred: torch.Tensor) -> torch.Tensor:
+def temporal_gaze_loss(pred: torch.Tensor, avg_factor=None) -> torch.Tensor:
     """Second-order temporal smoothness over a clip, pred (B, T, D):
     |2p_t - p_{t-1} - p_{t+1}|_1 with one-sided |2p_0 - 2p_1| and
-    |2p_T - 2p_{T-1}| at the ends; mean over (B, T)."""
+    |2p_T - 2p_{T-1}| at the ends; mean over (B, T), or the sum divided by
+    avg_factor where the caller gives one."""
     first = (2 * pred[:, 0] - 2 * pred[:, 1]).abs().sum(-1)
     last = (2 * pred[:, -1] - 2 * pred[:, -2]).abs().sum(-1)
     mid = (2 * pred[:, 1:-1] - pred[:, 2:] - pred[:, :-2]).abs().sum(-1)
-    return torch.cat([first[:, None], mid, last[:, None]], dim=1).mean()
+    terms = torch.cat([first[:, None], mid, last[:, None]], dim=1)
+    return terms.mean() if avg_factor is None else terms.sum() / avg_factor

@@ -9,7 +9,10 @@ Runs the video eval of test_gaze360_gaze (same build_forward, same driver)
 and, with --eval mae, scores the results inline
 (evaluation/mae.py::evaluate_results; --l2cs for the l2cs GT layout), in
 place of the two-step test_gaze360_gaze -> calculate_mae_gaze360 round
-trip. One process on one device (distribution: ROADMAP Queue 1, item 12).
+trip. Under a launcher (torchrun, parallel/distributed.py::init_distributed)
+each process evaluates its rank-strided share of the videos on its own
+card, the results are gathered in video order, and rank 0 writes and
+scores them.
 """
 from __future__ import annotations
 
@@ -47,16 +50,25 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     """Run the CLI. Returns dict(results, metrics (None without --eval
-    mae), seconds, evaluator)."""
+    mae), seconds, evaluator); on ranks other than 0, results and metrics
+    are None (rank 0 holds the gathered results)."""
+    from ..parallel.distributed import (gather_objects, init_distributed,
+                                        process_index,
+                                        shard_across_processes)
     from .test_gaze360_gaze import build_evaluator, video_paths
 
     args = parse_args(argv)
+    init_distributed(args.device)
     evaluator, _cfg, anno, videos = build_evaluator(args)
     t0 = time.time()
     # decode of the next video overlaps this one's forwards
     results = list(evaluator.run_videos_from_paths(
-        video_paths(videos, args.root)))
+        video_paths(shard_across_processes(videos), args.root)))
     seconds = time.time() - t0
+    results = gather_objects(results)
+    if process_index() != 0:
+        return dict(results=None, metrics=None, seconds=seconds,
+                    evaluator=evaluator)
 
     if args.out:
         os.makedirs(osp.dirname(osp.abspath(args.out)), exist_ok=True)

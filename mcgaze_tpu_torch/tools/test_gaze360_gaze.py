@@ -16,8 +16,9 @@ loader (cv2 where it cannot be built) in a background thread while the
 previous video computes. --device defaults to the card and refuses
 without one.
 
-One process on one device: rank-sharded evaluation and the gather of the
-results are ROADMAP Queue 1, item 12.
+Under a launcher (torchrun, parallel/distributed.py::init_distributed) each
+process evaluates its rank-strided share of the videos on its own card;
+the results are gathered in video order and rank 0 writes them.
 """
 from __future__ import annotations
 
@@ -130,9 +131,14 @@ def video_paths(videos, root):
 
 def main(argv=None) -> dict:
     """Run the CLI. Returns dict(results, path, frames, seconds,
-    evaluator)."""
+    evaluator); on ranks other than 0, results and path are None."""
+    from ..parallel.distributed import (gather_objects, init_distributed,
+                                        process_index,
+                                        shard_across_processes)
     args = parse_args(argv)
+    init_distributed(args.device)
     evaluator, _cfg, _anno, videos = build_evaluator(args)
+    videos = shard_across_processes(videos)
 
     results = []
     t0 = time.time()
@@ -145,6 +151,10 @@ def main(argv=None) -> dict:
             print(f'{i + 1}/{len(videos)} videos, '
                   f'{total_frames / (time.time() - t0):.1f} frames/s')
     seconds = time.time() - t0
+    results = gather_objects(results)
+    if process_index() != 0:
+        return dict(results=None, path=None, frames=None, seconds=seconds,
+                    evaluator=evaluator)
 
     os.makedirs(args.out_dir, exist_ok=True)
     cfg_name = osp.basename(args.config)

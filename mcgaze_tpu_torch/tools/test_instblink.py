@@ -16,7 +16,8 @@ the tracks with the MPEblink track AP and blink action AP
 blinks. --eval-only re-scores a saved results file without a checkpoint or
 a card. The checkpoint is a torch .pth: a reference InstBlink checkpoint or
 the port's ckpt_<step>.pth. --device defaults to the card and refuses
-without one. One process on one device (several: ROADMAP Queue 1, item 12).
+without one. One process; its videos round-robin over the visible cards
+(evaluation/driver.py::eval_devices), as the JAX CLI's over its devices.
 """
 from __future__ import annotations
 

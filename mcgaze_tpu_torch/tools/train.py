@@ -3,7 +3,10 @@
     python -m mcgaze_tpu_torch.tools.train <config> [--synthetic]
         [--max-iters N] [--device cuda|cpu] [--work-dir DIR] [--seed S]
         [--resume-from CKPT | --auto-resume] [--log-interval N]
+        [--mesh D,1] [--validate [--val-interval N] [--val-json J]
+        [--val-root R] [--val-max-videos N] [--val-l2cs]]
         [--cfg-options a.b=v ...]
+    torchrun --nproc-per-node D -m mcgaze_tpu_torch.tools.train <config> ...
 
 The config is one of configs/ (native or legacy), loaded without the JAX
 package. --synthetic trains on random batches made from the seed, as the
@@ -13,20 +16,26 @@ config's data_train is read. The model starts from seeded random weights
 and at the end it writes ckpt_<step>.pth (the model under the reference
 names) and ckpt_<step>_train.pth (optimizer, step, EMA).
 
-Distribution (--mesh, several processes) and --validate wait for ROADMAP
-Queue 1, item 12, and raise NotImplementedError.
+Data parallel: under a launcher (torchrun; parallel/distributed.py::
+init_distributed reads its environment) every process drives one device
+(NCCL on the card, gloo on the CPU), the config's global batch_size is
+split over the processes, each process's stream is seeded with seed + rank
+(rank 0's seed, broadcast), and DDP averages the gradients before the clip
+(train/loop.py). --mesh D,1 names the data axis, which must equal the
+number of processes; a model axis (D,M with M > 1) is not ported
+(parallel/mesh.py). Rank 0 alone logs and writes checkpoints. --validate
+runs the gaze video eval of the val set every --val-interval steps
+(default: the checkpoint interval) with the live weights, rank-sharded,
+and logs its MAE (train/hooks.py::ValidationHook).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import os.path as osp
 
 import numpy as np
-
-DISTRIBUTION = ('ROADMAP Queue 1, item 12 (distribution: data parallel '
-                'over NCCL, rank-sharded validation)')
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split('\n')[0])
@@ -44,9 +53,21 @@ def parse_args(argv=None):
     p.add_argument('--cfg-options', nargs='+', default=None,
                    help="config overrides 'a.b=val'")
     p.add_argument('--mesh', default=None, metavar='D,M',
-                   help='not ported yet: ' + DISTRIBUTION)
+                   help='data,model axis sizes; D must equal the number of '
+                        'processes, M must be 1 (default: every process on '
+                        'the data axis)')
     p.add_argument('--validate', action='store_true',
-                   help='not ported yet: ' + DISTRIBUTION)
+                   help='run the val MAE every --val-interval iters')
+    p.add_argument('--val-interval', type=int, default=None,
+                   help='default: the checkpoint interval')
+    p.add_argument('--val-json', default=None,
+                   help='val COCO-VID JSON (default: the config\'s test '
+                        'annotation)')
+    p.add_argument('--val-root', default=None,
+                   help='val rawframes root (default: from the config)')
+    p.add_argument('--val-max-videos', type=int, default=0)
+    p.add_argument('--val-l2cs', action='store_true',
+                   help='score validation with the l2cs GT layout')
     return p.parse_args(argv)
 
 
@@ -108,12 +129,14 @@ def restore_train_state(state, path: str, clean=None) -> None:
 def main(argv=None) -> dict:
     """Run the CLI. Returns dict(state, history: one dict of floats per
     step (the logs, lr, time, data_time), checkpoint: the last model file
-    written, work_dir)."""
+    written (None on ranks other than 0), work_dir, validation: the
+    ValidationHook's metrics per interval (rank 0))."""
     args = parse_args(argv)
-    if args.mesh or args.validate:
-        raise NotImplementedError(
-            f'--mesh / --validate are not ported yet: {DISTRIBUTION}')
-    from ..train.hooks import CheckInvalidLoss, TextLogger
+    from ..parallel.distributed import (barrier, init_distributed,
+                                        process_count, process_index,
+                                        sync_random_seed)
+    from ..parallel.mesh import parse_mesh, wrap_model
+    from ..train.hooks import CheckInvalidLoss, TextLogger, ValidationHook
     from ..train.loop import (create_train_state, make_train_step,
                               step_warmup_schedule)
     from ..utils.cfg_options import apply_overrides
@@ -124,11 +147,26 @@ def main(argv=None) -> dict:
     from ..data.prefetch import device_put_batches
 
     device = resolve_device(args.device)
+    init_distributed(device)         # NCCL: selects this process's card
+    args.seed = sync_random_seed(args.seed)
+    mesh = parse_mesh(args.mesh)
+    rank, n_proc = process_index(), process_count()
     cfg = apply_overrides(load_config(args.config), args.cfg_options)
     work_dir = args.work_dir or cfg.work_dir
     os.makedirs(work_dir, exist_ok=True)
     max_iters = args.max_iters or cfg.optim.max_iters
     log_interval = args.log_interval or cfg.log_interval
+    if n_proc > 1:
+        # the config's batch is global; each process loads its share
+        global_b = cfg.data_train.batch_size
+        if global_b % n_proc:
+            raise SystemExit(f'batch_size {global_b} does not divide over '
+                             f'{n_proc} processes')
+        cfg = dataclasses.replace(cfg, data_train=dataclasses.replace(
+            cfg.data_train, batch_size=global_b // n_proc))
+    if rank == 0:
+        print(f'mesh: data={mesh.n_data} model={mesh.n_model}, '
+              f'{n_proc} processes')
 
     state = create_train_state(cfg.model, cfg.optim, seed=args.seed,
                                device=device)
@@ -137,22 +175,35 @@ def main(argv=None) -> dict:
     if resume:
         restore_train_state(state, resume)
         print(f'resumed from {resume} at step {state.step}')
+    state.ddp = wrap_model(state.model, device)
 
+    # per-process streams differ by the seed offset
     if args.synthetic:
-        host = synthetic_batches(cfg, args.seed)
+        host = synthetic_batches(cfg, args.seed + rank)
     else:
         from ..data.dataset import Gaze360ClipDataset
         ds = Gaze360ClipDataset(cfg.data_train, seed=args.seed)
         print(f'dataset: {len(ds)} annotated frames')
-        host = ds.batches(seed=args.seed)
+        host = ds.batches(seed=args.seed + rank)
     batches = device_put_batches(host, device)
+
+    val_hook = None
+    if args.validate:
+        val_hook = ValidationHook(
+            cfg, args.val_json or cfg.data_test.ann_file,
+            args.val_root or cfg.data_test.img_prefix,
+            interval=args.val_interval or cfg.checkpoint_interval,
+            max_videos=args.val_max_videos, l2cs=args.val_l2cs,
+            work_dir=work_dir, device=device)
 
     step_fn = make_train_step(cfg.model, cfg.optim)
     sched = step_warmup_schedule(cfg.optim)
-    logger = TextLogger(work_dir, max_iters, log_interval)
+    logger = TextLogger(work_dir if rank == 0 else None, max_iters,
+                        log_interval, quiet=rank != 0)
     nan_guard = CheckInvalidLoss(interval=log_interval)
     timer = IterTimer()
-    history, path = [], None
+    history, path, validation = [], None, []
+    barrier('train_start')
     try:
         for it in range(state.step, max_iters):
             timer.before_iter()
@@ -165,15 +216,20 @@ def main(argv=None) -> dict:
             history.append(dict({k: float(v) for k, v in logs.items()},
                                 lr=lr, time=timer.time,
                                 data_time=timer.data_time))
-            if (it + 1) % cfg.checkpoint_interval == 0 or it + 1 == max_iters:
+            if rank == 0 and ((it + 1) % cfg.checkpoint_interval == 0
+                              or it + 1 == max_iters):
                 path = save_checkpoint(work_dir, it + 1,
                                        state.model.state_dict(),
                                        train_state=train_state_dict(state))
                 print(f'saved {path}')
+            if val_hook is not None:
+                metrics = val_hook.after_iter(it + 1, state)
+                if metrics is not None:
+                    validation.append(dict(step=it + 1, **metrics))
     finally:
         batches.close()
     return dict(state=state, history=history, checkpoint=path,
-                work_dir=work_dir)
+                work_dir=work_dir, validation=validation)
 
 
 if __name__ == '__main__':

@@ -21,6 +21,12 @@ The step reproduces the JAX chain masked(set_to_zero) -> clip_by_global_norm
     the step count before it increments (optax's `count`).
 torch.optim.AdamW's update is optax.adamw's (decoupled decay
 p -= lr * wd * p, bias-corrected moments, eps outside the square root).
+
+Data parallel (parallel/mesh.py): TrainState.ddp wraps the model in
+DistributedDataParallel, which averages the gradients over the processes
+in backward; the losses divide by global counts, so that average is the
+gradient of the global loss. The global-norm clip and the update run after
+it, on every process alike, and the logs are averaged over the processes.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ import torch
 
 from ..evaluation.forward import device_normalize
 from ..models.mcgaze import MCGazeModel, ModelConfig, init_model
+from ..parallel.distributed import average_over_processes
 from .criterion import total_loss
 from .hooks import ema_update
 from .targets import flatten_targets
@@ -90,6 +97,14 @@ class TrainState:
     step: int = 0
     # EMA copy of the parameters by name, when OptimConfig.ema_momentum
     ema: Optional[dict] = None
+    # the model under DistributedDataParallel in a data-parallel run
+    ddp: Optional[torch.nn.Module] = None
+
+    @property
+    def forward_model(self) -> torch.nn.Module:
+        """What the step calls forward on: the DDP wrapper, else the model.
+        Names, the optimizer and checkpoints use `model`."""
+        return self.ddp if self.ddp is not None else self.model
 
 
 def make_optimizer(model: torch.nn.Module,
@@ -152,9 +167,10 @@ def make_train_step(cfg: ModelConfig, oc: OptimConfig):
     def train_step(state: TrainState, batch: dict) -> dict:
         for p in state.model.parameters():
             p.grad = None
-        loss, logs = loss_fn(cfg, state.model, batch)
+        loss, logs = loss_fn(cfg, state.forward_model, batch)
         loss.backward()
-        logs = {k: v.detach() for k, v in logs.items()}
+        logs = average_over_processes({k: v.detach()
+                                       for k, v in logs.items()})
         logs['grad_norm'] = apply_update(state, oc, sched)
         return logs
 

@@ -11,7 +11,11 @@ dii_head.py head_loss, blink_head.py:119-134). Per stage:
              (sigmoid(logit) = P(blink): the reference's `1 - targets` is
              mmcv's label encoding, not a flip)
 
-num_pos is the positive count of the whole batch. `total_loss` computes the
+num_pos is the positive count of the whole batch: in a data-parallel run it
+is summed over the processes before dividing
+(parallel/distributed.py::global_normalizer), so DDP's gradient mean
+equals the JAX single-program loss; `num_pos` logs that global count.
+`total_loss` computes the
 cost matrices of every stage first and solves them in one host round trip
 (train/hungarian.py::solve_assignments); the JAX step solves each stage
 inside its jitted program, on the same costs.
@@ -23,6 +27,7 @@ import torch.nn.functional as F
 
 from ..models.query_detector import QueryDetectorConfig
 from ..ops import losses as L
+from ..parallel.distributed import global_normalizer, process_count
 from .hungarian import (clip_cost_matrix, clip_targets_from_match,
                         solve_assignments)
 
@@ -46,23 +51,36 @@ def stage_costs(cfg: QueryDetectorConfig, stage_out: dict, batch: dict,
         cfg.match_cls_weight, cfg.match_l1_weight, cfg.match_iou_weight)
 
 
+def stage_targets(cfg: QueryDetectorConfig, stage_out: dict, batch: dict,
+                  match: torch.Tensor) -> dict:
+    """clip_targets_from_match of one stage's match (B, M)."""
+    return clip_targets_from_match(
+        match, batch['gt_boxes'], batch['gt_labels'], batch['gt_present'],
+        batch['inst_valid'], batch.get('gt_blinks'),
+        num_queries=stage_out['cls_logits'].shape[1],
+        num_classes=cfg.num_classes)
+
+
 def stage_losses(cfg: QueryDetectorConfig, stage_out: dict, batch: dict,
-                 clip_length: int, match: torch.Tensor) -> dict:
-    """Losses of one stage at a given match (B, M).
+                 clip_length: int, match: torch.Tensor,
+                 tg: dict | None = None,
+                 num_pos: torch.Tensor | None = None) -> dict:
+    """Losses of one stage at a given match (B, M); tg and num_pos (the
+    avg_factor, global_normalizer of the positives) are computed here when
+    None.
 
     stage_out: cls_logits (B*T, Q, C), boxes (B*T, Q, 4), blink_logits
     (B*T, Q) when cfg.with_blink. batch: gt_boxes (B, M, T, 4) xyxy,
     gt_labels (B, M), gt_present (B, M, T) bool, inst_valid (B, M) bool,
     gt_blinks (B, M, T) (optional), whwh (B*T, 4)."""
     n, q, _ = stage_out['cls_logits'].shape
-    tg = clip_targets_from_match(
-        match, batch['gt_boxes'], batch['gt_labels'], batch['gt_present'],
-        batch['inst_valid'], batch.get('gt_blinks'), num_queries=q,
-        num_classes=cfg.num_classes)
+    if tg is None:
+        tg = stage_targets(cfg, stage_out, batch, match)
     labels = tg['labels'].reshape(n, q)
     bbox_targets = tg['bbox_targets'].reshape(n, q, 4)
     pos = tg['pos_mask'].reshape(n, q)
-    num_pos = pos.sum().clamp_min(1.0)
+    if num_pos is None:
+        num_pos = global_normalizer(pos.sum())
 
     out = {}
     # one_hot of num_classes + 1 columns, the background one dropped
@@ -83,7 +101,7 @@ def stage_losses(cfg: QueryDetectorConfig, stage_out: dict, batch: dict,
             tg['blink_targets'].reshape(-1), weight=pos.reshape(-1),
             gamma=cfg.focal_gamma, alpha=cfg.focal_alpha,
             avg_factor=num_pos)
-    out['num_pos'] = num_pos
+    out['num_pos'] = num_pos * process_count()
     return out
 
 
@@ -95,11 +113,15 @@ def total_loss(cfg: QueryDetectorConfig, model_out: dict, batch: dict,
     costs = torch.stack([stage_costs(cfg, s, batch, clip_length)
                          for s in stages])                 # (S, B, M, Q)
     matches, solve_s = solve_assignments(costs)
+    tgs = [stage_targets(cfg, s, batch, m) for s, m in zip(stages, matches)]
+    # every stage's global positive count in one allreduce
+    norms = global_normalizer(torch.stack([tg['pos_mask'].sum()
+                                           for tg in tgs]))
     logs = {}
     total = 0.0
     for i, (stage_out, match) in enumerate(zip(stages, matches)):
         for name, val in stage_losses(cfg, stage_out, batch, clip_length,
-                                      match).items():
+                                      match, tgs[i], norms[i]).items():
             logs[f'stage{i}_{name}'] = val
             if name != 'num_pos':
                 total = total + val

@@ -11,6 +11,11 @@ returns the reference mmdet names the port's modules use:
   * attention/qkv                  -> attention.attn.in_proj_{weight,bias}
   * FrozenBatchNorm scale/bias + stats mean/var
                                    -> weight/bias/running_mean/running_var
+The TeViT MsgShifT backbone's tree (backbone/patch_embed{i}, stage{i}_layer
+{l}, stage{i}_norm, msg_tokens) maps to the reference's `layers.{i}.0`,
+`layers.{i}.1.{l}` (attn.attn packed in_proj, attn.sr, attn.norm,
+ffn.layers.{0,1,4}), `layers.{i}.2` and `msg_tokens`, the inverse of
+convert_msgshift_backbone.
 `clean_reference_state_dict` and `clean_reference_query_state_dict` prepare
 a reference .pth's state dict for `load_state_dict(strict=True)`.
 """
@@ -23,6 +28,16 @@ import torch
 
 # module-path rewrites, JAX tree path (with '/') -> reference name, in order
 _RULES = (
+    # MsgShifT (TeViT)
+    (r'^backbone/patch_embed(\d+)/proj$', r'backbone/layers/\1/0/projection'),
+    (r'^backbone/patch_embed(\d+)/norm$', r'backbone/layers/\1/0/norm'),
+    (r'^backbone/stage(\d+)_layer(\d+)/', r'backbone/layers/\1/1/\2/'),
+    (r'^backbone/stage(\d+)_norm$', r'backbone/layers/\1/2'),
+    (r'/attn/attn/out$', r'/attn/attn/out_proj'),
+    (r'/attn/sr_norm$', r'/attn/norm'),
+    (r'/ffn/fc1$', r'/ffn/layers/0'),
+    (r'/ffn/dw$', r'/ffn/layers/1'),
+    (r'/ffn/fc2$', r'/ffn/layers/4'),
     (r'^bbox_head_(\d+)/', r'roi_head.bbox_head.\1/'),
     (r'^gaze_head_(\d+)/', r'roi_head.gaze_head.\1/'),
     (r'^blink_head_(\d+)/', r'roi_head.blink_head.\1/'),
@@ -74,8 +89,15 @@ def jax_variables_to_state_dict(variables: dict) -> dict:
             sd[_module_name(path) + '.weight'] = v
             continue
         module, leaf = path.rsplit('/', 1)
-        if module.endswith('/attention/qkv'):
-            name = _module_name(module[:-len('/qkv')]) + '.attn.in_proj_'
+        if leaf == 'msg_tokens':
+            sd[f'{module}.msg_tokens'] = v
+            continue
+        if module.endswith(('/attention/qkv', '/attn/attn/qkv')):
+            # the gaze heads' attention brick holds its packed projection
+            # one level down (attention.attn), MsgShifT's CrossMHA directly
+            name = _module_name(module[:-len('/qkv')]) + (
+                '.attn.in_proj_' if module.endswith('/attention/qkv')
+                else '.in_proj_')
             sd[name + ('weight' if leaf == 'kernel' else 'bias')] = \
                 v.T if leaf == 'kernel' else v
             continue
@@ -98,7 +120,8 @@ def jax_variables_to_state_dict(variables: dict) -> dict:
 
 
 # The query detector's tree uses the same module names plus blink_head_{s}
-# (blink_tower -> blink_fcs), which the rules above cover.
+# (blink_tower -> blink_fcs) and, for TeViT, the MsgShifT backbone, which
+# the rules above cover.
 jax_query_variables_to_state_dict = jax_variables_to_state_dict
 
 

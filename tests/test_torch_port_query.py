@@ -191,8 +191,16 @@ def test_topk_ties_go_to_lower_index():
 
 
 def test_msgshift_is_not_ported():
-    with pytest.raises(NotImplementedError, match='13b'):
-        pq.QueryDetector(pq.QueryDetectorConfig(backbone='msgshift'))
+    """The MsgShifT backbone is ported now (tests/test_torch_port_tevit.py
+    holds it against JAX): the TeViT detector builds with its pyramid's
+    widths in the FPN; an unknown backbone is refused."""
+    model = pq.QueryDetector(pq.QueryDetectorConfig(
+        backbone='msgshift', with_blink=False, num_classes=40))
+    assert type(model.backbone).__name__ == 'MsgShifT'
+    assert [m.conv.in_channels for m in model.neck.lateral_convs] == [
+        64, 128, 320, 512]
+    with pytest.raises(ValueError, match='msgshift'):
+        pq.QueryDetector(pq.QueryDetectorConfig(backbone='resnet101'))
 
 
 # ---------------------------------------------------- weights across packages

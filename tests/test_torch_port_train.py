@@ -625,10 +625,22 @@ def test_train_cli_checkpoint_reloads(tmp_path):
 
 
 @pytest.mark.parametrize('flag', ['--validate', '--mesh=2,1'])
-def test_train_cli_unported_flags_raise(flag):
+def test_train_cli_unported_flags_raise(flag, tmp_path):
+    """Both flags are ported now; what still raises before the first step:
+    --validate reads its val JSON (a missing one raises), --mesh D,1 needs
+    D processes (one runs here), and a model axis (--mesh 1,2) is not
+    ported (ROADMAP item 12b)."""
     from mcgaze_tpu_torch.tools.train import main
-    with pytest.raises(NotImplementedError, match='item 12'):
-        main([GAZE_CFG, '--synthetic', '--device', 'cpu', flag])
+    argv = [GAZE_CFG, '--synthetic', '--device', 'cpu', '--work-dir',
+            str(tmp_path), flag]
+    if flag == '--validate':
+        with pytest.raises(FileNotFoundError):
+            main(argv + ['--val-json', str(tmp_path / 'missing.json')])
+    else:
+        with pytest.raises(ValueError, match='needs 2 processes'):
+            main(argv)
+        with pytest.raises(NotImplementedError, match='item 12b'):
+            main(argv[:-1] + ['--mesh=1,2'])
 
 
 def test_device_put_batches_on_cpu():
