@@ -370,6 +370,21 @@ def e2e_err(x, y):
                *((x[2][k] - y[2][k]).abs().max().item() for k in y[2]))
 
 
+def box_deg_err(boxes, gazes, ref_boxes, ref_gazes):
+    """(box error relative to the reference's largest coordinate, largest
+    angle in degrees between a gaze and its reference), for a bf16 forward
+    against an f32 one."""
+    box = ((boxes.float() - ref_boxes.float()).abs().max()
+           / ref_boxes.float().abs().max().clamp_min(1.0)).item()
+    deg = 0.0
+    for g, r in zip(gazes, ref_gazes):
+        g, r = g.float(), r.float()
+        cos = (g * r).sum(-1) / (g.norm(dim=-1) * r.norm(dim=-1))
+        deg = max(deg, torch.rad2deg(torch.acos(cos.clamp(-1.0, 1.0)))
+                  .max().item())
+    return box, deg
+
+
 # ------------------------------------------------------------------ phases
 
 def default_k1_cases():
@@ -951,10 +966,36 @@ def phase_profile(step, layers, timer, phase='profile',
 
 # ------------------------------------------------------------- K4 and K5
 
+def host_us(fn, calls=200, reps=5):
+    """Host microseconds per call of fn: `calls` calls queued back to back
+    (the device keeps up or the queue absorbs them), then one sync,
+    median of `reps`; and the median of 30 calls each synchronised."""
+    fn()
+    torch.cuda.synchronize()
+    queued, synced = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        queued.append((time.perf_counter() - t0) * 1e6 / calls)
+        torch.cuda.synchronize()
+    for _ in range(30):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        synced.append((time.perf_counter() - t0) * 1e6)
+    return dict(queued=float(np.median(queued)),
+                synced=float(np.median(synced)),
+                synced_iqr=float(np.subtract(*np.percentile(synced,
+                                                            [75, 25]))))
+
+
 def phase_kernel_k4(device, timer):
     """K4 against stqi_attention_reference on the card, f32: the eval shape
     (32 clips), one clip, and 3 heads of 32 channels (a cluster of 3);
-    clip 0 unchanged when the others move; the cluster plan."""
+    clip 0 unchanged when the others move; the cluster plan. At the two
+    8-head shapes, the host us per call of the bare launch and of the
+    eager mcgaze::stqi_attention operator (host_us)."""
     from mcgaze_tpu_torch.ops import stqi_attention
     from mcgaze_tpu_torch.tools.kernel_bounds import k4_bound
 
@@ -997,7 +1038,15 @@ def phase_kernel_k4(device, timer):
         p_ms = timer.ms(lambda: stqi_attention.stqi_attention_reference(
             query, *w, t, heads), reps=10)
         b = k4_bound(clips, t, q, c)
-        results.append(dict(
+        dispatch = {}
+        if heads == 8:
+            # host cost of the eager operator against the bare launch
+            dispatch = dict(
+                launch=host_us(lambda: stqi_attention.launch_stqi_attention(
+                    query, *w, t, heads)),
+                operator=host_us(lambda: torch.ops.mcgaze.stqi_attention(
+                    query, *w, t, heads)))
+        results.append(dict(dispatch_us=dispatch,
             shape=shape, dtype='float32', form=f'{clips} clips, {heads} heads',
             clips=clips, c=c, heads=heads, cluster=plan['cluster'],
             ctas=clips * plan['cluster'], smem_bytes=plan['smem_bytes'],
@@ -1287,15 +1336,8 @@ def phase_slice_fused(device, timer):
                                             seed=0, device=device)
 
     def bf16_err(x):
-        box = ((x[0].float() - p[0]).abs().max()
-               / p[0].abs().max().clamp_min(1.0)).item()
-        deg = 0.0
-        for k in p[2]:
-            g, r = x[2][k].float(), p[2][k]
-            cos = (g * r).sum(-1) / (g.norm(dim=-1) * r.norm(dim=-1))
-            deg = max(deg, torch.rad2deg(torch.acos(cos.clamp(-1.0, 1.0)))
-                      .max().item())
-        return box, deg
+        return box_deg_err(x[0], [x[2][k] for k in p[2]], p[0],
+                           [p[2][k] for k in p[2]])
 
     fused16_err = bf16_err(built['bfloat16'][2](u8, sel_t, whwh, 7))
     plain16_err = bf16_err(plain_dedup16(u8, sel_t, whwh, 7))
@@ -2064,35 +2106,55 @@ def phase_serve(device, checkpoint, opts=(), dtype='bfloat16',
 
 
 EXPORT_DTYPE = 'bfloat16'
+FUSED_OPTS = ('model.backbone_impl=fused', 'model.fused_attention=True')
+
+
+def export_err(x, y):
+    """Exported outputs (boxes, scores, 4 gazes) against a reference's:
+    boxes relative to their largest coordinate, the rest absolute."""
+    box = ((x[0].float() - y[0].float()).abs().max()
+           / y[0].float().abs().max().clamp_min(1.0)).item()
+    return max(box, *((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(x[1:], y[1:])))
+
+
+def f32_forward(cfg, checkpoint, device):
+    """The plain configuration's eager ClipForward in f32 on the weights
+    of `checkpoint`, frozen, as export_model builds its forward."""
+    from mcgaze_tpu_torch.models.mcgaze import MCGazeModel
+    from mcgaze_tpu_torch.tools.deployment.export_model import ClipForward
+    from mcgaze_tpu_torch.tools.test_gaze360_gaze import load_weights
+
+    model = MCGazeModel(dataclasses.replace(cfg.model, dtype='float32'))
+    load_weights(model, checkpoint)
+    model = model.to(device).eval().requires_grad_(False)
+    return ClipForward(model, cfg.model.clip_length).eval()
 
 
 def phase_export(device, checkpoint, opts=()):
     """export_model.main --selftest at --batch-clips 1 on the train
-    phase's ckpt_3.pth (full width, EXPORT_DTYPE, 224 px); the saved
-    program loaded back launches K1 once per stage per call; its outputs
-    finite with unit gazes; host ms per call of the loaded program and of
-    the eager forward (median of 5, synchronised); the fused configuration
-    refuses to export."""
+    phase's ckpt_3.pth (full width, 224 px): the plain and the fused
+    configuration in EXPORT_DTYPE, and the fused one again in f32. Each
+    saved program, loaded back, runs once with the counters from zero: the
+    plain one launches K1 once per stage; each fused one K1 and K4 once
+    per stage and K5 as often as one eager fused forward does. Outputs
+    finite with unit gazes; each fused program against its eager forward
+    at the selftest tolerance; the f32 fused program (TF32 off) against
+    the plain configuration's f32 forward on the same weights at TOL_E2E.
+    The bf16 programs' errors against that forward are printed, not held:
+    in bf16 the kernels' and the batch's rounding move this model's
+    random-weight outputs by O(1). Host ms per call of each loaded program
+    and its eager forward (median of 5, synchronised)."""
     import shutil
 
-    from mcgaze_tpu_torch.ops import roi_align_cuda
     from mcgaze_tpu_torch.tools.deployment import export_model
+    from mcgaze_tpu_torch.tools.kernel_bounds import chains, k5_launches
     from mcgaze_tpu_torch.utils.cfg_options import apply_overrides
     from mcgaze_tpu_torch.utils.config import load_config
 
     cfg = apply_overrides(load_config(TRAIN_CONFIG), opts)
     root = os.path.join(ROOT, 'work_dirs', 'chip_smoke_export')
     shutil.rmtree(root, ignore_errors=True)
-    out = os.path.join(root, 'mcgaze.pt2')
-    argv = [TRAIN_CONFIG, checkpoint, '--out', out, '--batch-clips', '1',
-            '--dtype', EXPORT_DTYPE, '--device', str(device)]
-    res = export_model.main(argv + ['--selftest'] +
-                            (['--cfg-options', *opts] if opts else []))
-    size_mb = os.path.getsize(out) / 1e6
-    selftest_err = res['selftest_max_abs_err']
-    loaded = torch.export.load(out).module()
-    eager = res['forward']
-    del res
     n_stages = cfg.model.num_stages
     h, w = cfg.eval_cfg.canvas
     imgs, whwh = export_model.example_inputs(cfg.model.clip_length, h, w,
@@ -2108,41 +2170,101 @@ def phase_export(device, checkpoint, opts=()):
             times.append((time.perf_counter() - t0) * 1e3)
         return float(np.median(times[1:]))
 
-    with torch.inference_mode():
+    def export(name, extra, dtype):
+        out = os.path.join(root, f'{name}.pt2')
+        res = export_model.main(
+            [TRAIN_CONFIG, checkpoint, '--out', out, '--batch-clips', '1',
+             '--dtype', dtype, '--device', str(device), '--selftest']
+            + (['--cfg-options', *extra, *opts] if extra or opts else []))
+        return dict(mb=os.path.getsize(out) / 1e6,
+                    selftest_err=res['selftest_max_abs_err'],
+                    loaded=torch.export.load(out).module(),
+                    eager=res['forward'])
+
+    def run(fn):
         reset_counters()
-        outs = loaded(imgs, whwh)
+        outs = fn(imgs, whwh)
         torch.cuda.synchronize()
-        launches = roi_align_cuda.launch_count
-        loaded_ms, eager_ms = ms(loaded), ms(eager)
-    check(launches == n_stages, f'export: the loaded program launched K1 '
-          f'{launches} times, expected {n_stages} (one per stage)')
-    check(all(bool(torch.isfinite(o).all()) for o in outs),
-          'export: non-finite outputs')
-    norms = torch.stack([o.float().norm(dim=-1) for o in outs[2:]])
-    tol = TOL_BF16 if EXPORT_DTYPE == 'bfloat16' else 1e-4
-    check((norms - 1).abs().max().item() <= tol, 'export: gazes not unit')
-    try:
-        export_model.main([TRAIN_CONFIG, '--out',
-                           os.path.join(root, 'fused.pt2'), '--device',
-                           str(device), '--cfg-options',
-                           'model.backbone_impl=fused',
-                           'model.fused_attention=True', *opts])
-    except NotImplementedError as e:
-        refused = str(e)
-    else:
-        check(False, 'export: the fused configuration exported')
-    check(not os.path.exists(os.path.join(root, 'fused.pt2')),
-          'export: a fused program was written')
-    del loaded, eager, outs
+        return outs, fused_counters()
+
+    results = {}
+    for name, extra, dtype in (('plain', (), EXPORT_DTYPE),
+                               ('fused', FUSED_OPTS, EXPORT_DTYPE),
+                               ('fused_f32', FUSED_OPTS, 'float32')):
+        # the f32 program runs with TF32 off, as the plain f32 forward
+        # it is held against
+        torch.backends.cudnn.allow_tf32 = dtype != 'float32'
+        torch.backends.cuda.matmul.allow_tf32 = False
+        ex = export(name, extra, dtype)
+        with torch.inference_mode():
+            eager_outs, eager_launches = run(ex['eager'])
+            outs, launches = run(ex['loaded'])
+            loaded_ms, eager_ms = ms(ex['loaded']), ms(ex['eager'])
+        check(all(bool(torch.isfinite(o).all()) for o in outs),
+              f'export {name}: non-finite outputs')
+        norms = torch.stack([o.float().norm(dim=-1) for o in outs[2:]])
+        tol = TOL_BF16 if dtype == 'bfloat16' else 1e-4
+        check((norms - 1).abs().max().item() <= tol,
+              f'export {name}: gazes not unit')
+        results[name] = dict(
+            ex, dtype=dtype, outs=outs, launches=launches,
+            eager_launches=eager_launches, loaded_ms=loaded_ms,
+            eager_ms=eager_ms, vs_eager_err=export_err(outs, eager_outs))
+    torch.backends.cudnn.allow_tf32 = True
+
+    plain, fused = results['plain'], results['fused']
+    check(plain['launches']['k1'] == n_stages, f'export: the loaded plain '
+          f'program launched K1 {plain["launches"]["k1"]} times, expected '
+          f'{n_stages} (one per stage)')
+    k5_expected = sum(k5_launches(ch) for ch in chains(cfg.model.backbone_depth))
+    check(fused['eager_launches']['k5'] == k5_expected, f'export: the eager '
+          f'fused forward launched K5 {fused["eager_launches"]["k5"]} times, '
+          f'expected {k5_expected}')
+    expected = dict(k1=n_stages, k3=0, k4=n_stages, k5=k5_expected)
+    for name in ('fused', 'fused_f32'):
+        r = results[name]
+        check(r['launches'] == expected, f'export: the loaded {name} '
+              f'program launched {r["launches"]}, expected {expected}')
+        check(r['vs_eager_err'] <= export_model.SELFTEST_ATOL,
+              f'export: the loaded {name} program differs from its eager '
+              f'forward by {r["vs_eager_err"]} '
+              f'(atol {export_model.SELFTEST_ATOL})')
+    # the plain configuration's f32 forward on the same weights, TF32 off
+    ref = f32_forward(cfg, checkpoint, device)
+    with torch.inference_mode():
+        torch.backends.cudnn.allow_tf32 = False
+        p = ref(imgs, whwh)
+        torch.backends.cudnn.allow_tf32 = True
+    del ref
+    fused_f32_vs_plain = export_err(results['fused_f32']['outs'], p)
+    check(fused_f32_vs_plain <= TOL_E2E, f'export: the f32 fused program '
+          f'differs from the plain f32 forward by {fused_f32_vs_plain} '
+          f'(tolerance {TOL_E2E})')
+    # printed only: the bf16 programs against the plain f32 forward, in
+    # box error and gaze degrees
+    vs_f32 = {name: box_deg_err(results[name]['outs'][0],
+                                results[name]['outs'][2:], p[0], p[2:])
+              for name in ('plain', 'fused')}
+    fused_vs_plain = export_err(fused['outs'], plain['outs'])
+    summary = {name: {k: r[k] for k in ('dtype', 'mb', 'selftest_err',
+                                        'launches',
+                                        'eager_launches', 'loaded_ms',
+                                        'eager_ms', 'vs_eager_err')}
+               for name, r in results.items()}
+    del results, plain, fused
     shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
-    emit('export', dtype=EXPORT_DTYPE, batch_clips=1, program_mb=size_mb,
-         selftest_max_abs_err=selftest_err,
+    emit('export', dtype=EXPORT_DTYPE, batch_clips=1, **summary,
          selftest_atol=export_model.SELFTEST_ATOL,
-         k1_launches_per_call=launches, loaded_ms_per_call=loaded_ms,
-         eager_ms_per_call=eager_ms, fused_refused=refused,
+         vs_plain_f32=dict(
+             fused_box_err=vs_f32['fused'][0],
+             fused_gaze_deg=vs_f32['fused'][1],
+             plain_box_err=vs_f32['plain'][0],
+             plain_gaze_deg=vs_f32['plain'][1]),
+         fused_vs_plain_bf16_err=fused_vs_plain,
+         fused_f32_vs_plain_f32_err=fused_f32_vs_plain, tol_e2e=TOL_E2E,
          card=nvidia_smi())
-    return launches
+    return {name: r['launches'] for name, r in summary.items()}
 
 
 def phase_demo(device, opts=()):
@@ -2950,7 +3072,9 @@ def main():
              'mcgaze_tpu/ops/roi_align_pallas.py:424',
              dict(eval=eval_launches, eval_fused=fused_launches['k1'],
                   train=train_launches['k1'], **cli_launches,
-                  serve=serve_launches, export=export_launches,
+                  serve=serve_launches, export=export_launches['plain']['k1'],
+                  export_fused=export_launches['fused']['k1'],
+                  export_fused_f32=export_launches['fused_f32']['k1'],
                   demo=demo_launches, instblink_eval=ib_eval_launches,
                   instblink_train=ib_train_launches['k1'],
                   tevit_train=tv_train_launches['k1'],
@@ -2969,12 +3093,17 @@ def main():
         line('fused_stqi_attention',
              'mcgaze_tpu_torch/csrc/stqi_attention.cu',
              'mcgaze_tpu/ops/stqi_attention.py:110',
-             dict(eval_fused=fused_launches['k4']), k4),
+             dict(eval_fused=fused_launches['k4'],
+                  export_fused=export_launches['fused']['k4'],
+                  export_fused_f32=export_launches['fused_f32']['k4']), k4),
         line('fused_bottleneck_chain',
              'mcgaze_tpu_torch/csrc/fused_bottleneck.cu',
              'mcgaze_tpu/ops/fused_bottleneck.py:125',
              dict(eval_fused=fused_launches['k5'],
-                  train_fused=train_fused_launches['k5']), k5)]}),
+                  train_fused=train_fused_launches['k5'],
+                  export_fused=export_launches['fused']['k5'],
+                  export_fused_f32=export_launches['fused_f32']['k5']),
+             k5)]}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {

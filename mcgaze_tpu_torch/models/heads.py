@@ -28,18 +28,25 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.stqi_attention import fused_stqi_attention
-from .layers import LayerNorm, Linear
+from .layers import LayerNorm, Linear, blocked_linear
 
 CLUES = ('face', 'eyes', 'head')
+# rows per product of STQIHead's attention in_proj and DynamicConv fc_layer
+# in eval mode (layers.blocked_linear): a clip's outputs do not depend on
+# the clips that share its serving bucket or eval batch. 128 rows: 6
+# products for 32 clips of 7 x 3 queries, one for a lone clip. A train
+# step sums its batch into one loss and keeps one product.
+BLOCK_ROWS = 128
 
 
 class _PackedAttention(nn.Module):
     """torch.nn.MultiheadAttention's parameters (packed in_proj, out_proj)
-    with the JAX TorchMHA's arithmetic: f32 logits divided by sqrt(d)."""
+    with the JAX TorchMHA's arithmetic: f32 logits divided by sqrt(d).
+    block_rows: in_proj through blocked_linear in eval mode."""
 
-    def __init__(self, embed: int, heads: int):
+    def __init__(self, embed: int, heads: int, block_rows=None):
         super().__init__()
-        self.heads = heads
+        self.heads, self.block_rows = heads, block_rows
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed, embed))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed))
         self.out_proj = Linear(embed, embed)
@@ -48,8 +55,8 @@ class _PackedAttention(nn.Module):
         """x: (B, S, E) -> (B, S, E), no residual."""
         b, s, e = x.shape
         hd = e // self.heads
-        qkv = F.linear(x, self.in_proj_weight.to(x.dtype),
-                       self.in_proj_bias.to(x.dtype))
+        qkv = blocked_linear(x, self.in_proj_weight, self.in_proj_bias,
+                             None if self.training else self.block_rows)
         q, k, v = (t.reshape(b, s, self.heads, hd).transpose(1, 2)
                    for t in qkv.chunk(3, dim=-1))
         logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
@@ -89,9 +96,9 @@ def _batched_heads(x, heads):
 class MultiheadAttention(nn.Module):
     """mmcv's residual MultiheadAttention brick: x + attn(x)."""
 
-    def __init__(self, embed: int, heads: int):
+    def __init__(self, embed: int, heads: int, block_rows=None):
         super().__init__()
-        self.attn = _PackedAttention(embed, heads)
+        self.attn = _PackedAttention(embed, heads, block_rows)
 
     def forward(self, x):
         return x + self.attn(x)
@@ -108,11 +115,14 @@ def mlp_tower(features: int, num_layers: int):
 
 class DynamicConv(nn.Module):
     """Query-conditioned 1x1 conv over the RoI feature (reference
-    mmdet/models/utils/transformer.py DynamicConv)."""
+    mmdet/models/utils/transformer.py DynamicConv). block_rows: fc_layer
+    through blocked_linear in eval mode."""
 
-    def __init__(self, channels=256, feat_channels=64, roi_size=7):
+    def __init__(self, channels=256, feat_channels=64, roi_size=7,
+                 block_rows=None):
         super().__init__()
         self.channels, self.feat_channels = channels, feat_channels
+        self.block_rows = block_rows
         self.dynamic_layer = Linear(channels, 2 * channels * feat_channels)
         self.norm_in = LayerNorm(feat_channels)
         self.norm_out = LayerNorm(channels)
@@ -129,7 +139,9 @@ class DynamicConv(nn.Module):
         x = roi.reshape(m, -1, c)
         x = F.relu(self.norm_in(torch.bmm(x, p_in)))
         x = F.relu(self.norm_out(torch.bmm(x, p_out)))
-        x = self.fc_layer(x.reshape(m, -1))
+        x = blocked_linear(x.reshape(m, -1), self.fc_layer.weight,
+                           self.fc_layer.bias,
+                           None if self.training else self.block_rows)
         return F.relu(self.fc_norm(x))
 
 
@@ -158,10 +170,10 @@ class STQIHead(nn.Module):
         super().__init__()
         self.fused_attention = fused_attention
         self.batched_clues = batched_clues
-        self.attention = MultiheadAttention(channels, num_heads)
+        self.attention = MultiheadAttention(channels, num_heads, BLOCK_ROWS)
         self.attention_norm = LayerNorm(channels)
-        self.instance_interactive_conv = DynamicConv(channels, feat_channels,
-                                                     roi_size)
+        self.instance_interactive_conv = DynamicConv(
+            channels, feat_channels, roi_size, BLOCK_ROWS)
         self.instance_interactive_conv_norm = LayerNorm(channels)
         self.ffn = _FFN(channels, ffn_channels)
         self.ffn_norm = LayerNorm(channels)

@@ -26,6 +26,25 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
 
 
+def blocked_linear(x, weight, bias=None, rows: int | None = None):
+    """F.linear in x's dtype, the rows taken `rows` at a time (the last
+    block zero-padded), one product of the same shape per block. One
+    product over all rows orders its sums by the row count (on the CPU;
+    a GEMM library may pick another kernel or split for another count),
+    so in bf16 a clip's outputs moved with the number of clips in its
+    serving bucket; a block of fixed shape sums each row the same way
+    whatever shares the call. rows=None: one F.linear."""
+    w, b = weight.to(x.dtype), _cast(bias, x.dtype)
+    if rows is None:
+        return F.linear(x, w, b)
+    lead, k = x.shape[:-1], x.shape[-1]
+    x = x.reshape(-1, k)
+    m = x.shape[0]
+    x = F.pad(x, (0, 0, 0, -m % rows))
+    y = torch.cat([F.linear(blk, w, b) for blk in x.split(rows)])
+    return y[:m].reshape(*lead, -1)
+
+
 class Conv2d(nn.Conv2d):
     def forward(self, x):
         return self._conv_forward(x, self.weight.to(x.dtype),

@@ -25,6 +25,13 @@ mcgaze_tpu/ops/fused_bottleneck.py.
   * `fused_bottleneck_chain` is what the model calls: CPU tensors go to
     `chain_reference`, CUDA tensors to the Function. There is no fallback
     from the card to the plain version.
+  * The forward is also the operator `torch.ops.mcgaze.fused_bottleneck_chain`,
+    so a traced program (`torch.export`, tools/deployment/export_model.py)
+    records each chain as one node: its CUDA kernel is
+    `launch_fused_bottleneck_chain`, its CPU kernel `chain_reference`, its
+    fake kernel gives the output's shape. `fused_bottleneck_chain` goes
+    through it only while a program is being traced, and it has no
+    gradient: eager training keeps the Function.
 """
 from __future__ import annotations
 
@@ -125,6 +132,8 @@ def fused_bottleneck_chain(x: torch.Tensor, weights, h: int, w: int
     """x (N, H*W, C) NHWC rows; weights the flat folded tuple. CPU tensors
     run `chain_reference`; CUDA tensors the kernel, with the plain
     version's autograd as the backward."""
+    if torch.compiler.is_compiling():
+        return torch.ops.mcgaze.fused_bottleneck_chain(x, list(weights), h, w)
     devices = {t.device for t in (x, *weights)}
     if len(devices) != 1:
         raise ValueError(f'fused_bottleneck_chain: inputs on several devices '
@@ -132,6 +141,31 @@ def fused_bottleneck_chain(x: torch.Tensor, weights, h: int, w: int
     if x.device.type == 'cpu':
         return chain_reference(x, weights, h, w)
     return FusedBottleneckChainFunction.apply(x, h, w, *weights)
+
+
+def _op_cpu(x, weights, h, w):
+    # looked up at call time, as fused_bottleneck_chain's CPU path is, so a
+    # test can wrap both at once
+    return chain_reference(x, weights, h, w)
+
+
+fused_bottleneck_chain_op = torch.library.custom_op(
+    'mcgaze::fused_bottleneck_chain', _op_cpu, mutates_args=(),
+    device_types='cpu',
+    schema='(Tensor x, Tensor[] weights, int h, int w) -> Tensor')
+
+
+@fused_bottleneck_chain_op.register_kernel('cuda')
+def _op_cuda(x, weights, h, w):
+    # the operator has no gradient: its launches never build a graph
+    with torch.no_grad():
+        return launch_fused_bottleneck_chain(x, weights, h, w)
+
+
+@fused_bottleneck_chain_op.register_fake
+def _op_fake(x, weights, h, w):
+    a3 = split_blocks(weights)[-1][4]
+    return x.new_empty((x.shape[0], x.shape[1], a3.shape[1]))
 
 
 class FusedBottleneckChainFunction(torch.autograd.Function):

@@ -20,6 +20,12 @@ and out projections included.
   * `fused_stqi_attention` is what the head calls: CPU tensors go to the
     plain version, CUDA tensors to the kernel. There is no fallback from
     the card to the plain version.
+  * The kernel is also the operator `torch.ops.mcgaze.stqi_attention`, so a
+    traced program (`torch.export`, tools/deployment/export_model.py)
+    records it as one node: its CUDA kernel is `launch_stqi_attention`, its
+    CPU kernel the plain version, its fake kernel gives the output's shape.
+    `fused_stqi_attention` goes through it only while a program is being
+    traced; it has no gradient, as the kernel has none.
 
 Weights are in the JAX layout: wqkv (C, 3C) and wout (C, C) are applied as
 x @ w (the transposes of torch's in_proj_weight and out_proj.weight).
@@ -86,8 +92,14 @@ def fused_stqi_attention(query, wqkv, bqkv, wout, bout, ln_scale, ln_bias,
                          clip_length: int, heads: int = 8) -> torch.Tensor:
     """Spatial attention + LN + temporal attention + LN of the STQI head:
     CPU tensors through the plain version, CUDA tensors through the
-    kernel."""
+    kernel. Only a traced program goes through the mcgaze::stqi_attention
+    operator: called eagerly, it costs 31-52 us of host time a call above
+    the bare launch (queued, one clip and 32 clips; chip_smoke.py
+    kernel_k4, H100 80GB HBM3 at 700 W), ~0.2 ms of a forward's four
+    calls."""
     tensors = (query, wqkv, bqkv, wout, bout, ln_scale, ln_bias)
+    if torch.compiler.is_compiling():
+        return torch.ops.mcgaze.stqi_attention(*tensors, clip_length, heads)
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f'fused_stqi_attention: inputs on several devices '
@@ -95,6 +107,37 @@ def fused_stqi_attention(query, wqkv, bqkv, wout, bout, ln_scale, ln_bias,
     if query.device.type == 'cpu':
         return stqi_attention_reference(*tensors, clip_length, heads)
     return launch_stqi_attention(*tensors, clip_length, heads)
+
+
+def _op_cpu(query, wqkv, bqkv, wout, bout, ln_scale, ln_bias, clip_length,
+            heads):
+    # looked up at call time, as fused_stqi_attention's CPU path is, so a
+    # test can wrap both at once
+    return stqi_attention_reference(query, wqkv, bqkv, wout, bout, ln_scale,
+                                    ln_bias, clip_length, heads)
+
+
+stqi_attention_op = torch.library.custom_op(
+    'mcgaze::stqi_attention', _op_cpu, mutates_args=(),
+    device_types='cpu',
+    schema='(Tensor query, Tensor wqkv, Tensor bqkv, Tensor wout, '
+           'Tensor bout, Tensor ln_scale, Tensor ln_bias, int clip_length, '
+           'int heads) -> Tensor')
+
+
+@stqi_attention_op.register_kernel('cuda')
+def _op_cuda(query, wqkv, bqkv, wout, bout, ln_scale, ln_bias, clip_length,
+             heads):
+    # forward-only, as the kernel is: its launch never builds a graph
+    with torch.no_grad():
+        return launch_stqi_attention(query, wqkv, bqkv, wout, bout, ln_scale,
+                                     ln_bias, clip_length, heads)
+
+
+@stqi_attention_op.register_fake
+def _op_fake(query, wqkv, bqkv, wout, bout, ln_scale, ln_bias, clip_length,
+             heads):
+    return query.new_empty(query.shape)
 
 
 def cluster_plan(tokens: int, c: int, heads: int) -> dict:

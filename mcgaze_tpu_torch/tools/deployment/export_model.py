@@ -10,15 +10,15 @@ tools/deployment/pytorch2onnx.py):
 The program maps (imgs (N, H, W, 3) f32 normalised, whwh (N, 4) f32),
 N = batch_clips * clip_length, to the last stage's boxes (N, 3, 4), scores
 (N, 3) and fusion, face, eyes and head gazes (N, 3 each), with the weights
-inside it. `torch.export.load` reads it back once
-`mcgaze_tpu_torch.ops.roi_align_cuda` is imported: the FPN RoIAlign is
-the operator `torch.ops.mcgaze.roi_align_fpn` in the program, its CUDA
-kernel on the card. --selftest loads the saved program and holds its
-outputs against the eager forward at 1e-5.
-
-The fused configuration (backbone_impl='fused', fused_attention=True)
-does not export: its kernels K5 and K4 have no operator a program can
-hold, and exporting it raises rather than record the plain path.
+inside it. `torch.export.load` reads it back once the port's operators
+are registered (importing `mcgaze_tpu_torch.models.mcgaze` registers all
+three): the FPN RoIAlign is the operator `torch.ops.mcgaze.roi_align_fpn`
+in the program, and in the fused configuration (backbone_impl='fused',
+fused_attention=True) each stride-1 bottleneck chain is
+`torch.ops.mcgaze.fused_bottleneck_chain` and each stage's attention
+`torch.ops.mcgaze.stqi_attention`; on the card each launches its kernel
+(K1, K5, K4). --selftest loads the saved program and holds its outputs
+against the eager forward at 1e-5.
 --device defaults to the card and refuses without one.
 """
 from __future__ import annotations
@@ -71,22 +71,6 @@ class ClipForward(nn.Module):
                 g['fusion'], g['face'], g['eyes'], g['head'])
 
 
-def check_exportable(model_cfg) -> None:
-    """Raise where the configuration runs a kernel that has no operator."""
-    missing = []
-    if model_cfg.backbone_impl == 'fused':
-        missing.append("K5, the fused bottleneck chain "
-                       "(backbone_impl='fused', ops/fused_bottleneck.py)")
-    if model_cfg.fused_attention:
-        missing.append('K4, the fused STQI attention (fused_attention=True, '
-                       'ops/stqi_attention.py)')
-    if missing:
-        raise NotImplementedError(
-            'export of the fused configuration: ' + ' and '.join(missing) +
-            ' have no torch.library operator, so a traced program cannot '
-            'hold their kernels; export the plain configuration')
-
-
 def example_inputs(n, h, w, device, seed=0):
     rng = np.random.RandomState(seed)
     imgs = torch.from_numpy(rng.randn(n, h, w, 3).astype(np.float32))
@@ -109,7 +93,6 @@ def main(argv=None) -> dict:
     model_cfg = cfg.model
     if args.dtype:
         model_cfg = dataclasses.replace(model_cfg, dtype=args.dtype)
-    check_exportable(model_cfg)
     t = model_cfg.clip_length
     h, w = cfg.eval_cfg.canvas
     n = args.batch_clips * t

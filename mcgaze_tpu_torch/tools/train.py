@@ -50,6 +50,9 @@ def parse_args(argv=None):
     p.add_argument('--synthetic', action='store_true',
                    help='random batches instead of the dataset')
     p.add_argument('--log-interval', type=int)
+    p.add_argument('--max-keep-ckpts', type=int, default=None,
+                   help='keep only the newest N checkpoints (model and '
+                        'train files); default: keep all, as the JAX CLI')
     p.add_argument('--cfg-options', nargs='+', default=None,
                    help="config overrides 'a.b=val'")
     p.add_argument('--mesh', default=None, metavar='D,M',
@@ -220,7 +223,8 @@ def main(argv=None) -> dict:
                               or it + 1 == max_iters):
                 path = save_checkpoint(work_dir, it + 1,
                                        state.model.state_dict(),
-                                       train_state=train_state_dict(state))
+                                       train_state=train_state_dict(state),
+                                       max_to_keep=args.max_keep_ckpts)
                 print(f'saved {path}')
             if val_hook is not None:
                 metrics = val_hook.after_iter(it + 1, state)

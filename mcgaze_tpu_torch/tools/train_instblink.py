@@ -33,6 +33,9 @@ def parse_args(argv=None):
     p.add_argument('--synthetic', action='store_true',
                    help='random in-memory batches (no dataset needed)')
     p.add_argument('--log-interval', type=int)
+    p.add_argument('--max-keep-ckpts', type=int, default=None,
+                   help='keep only the newest N checkpoints (model and '
+                        'train files); default: keep all, as the JAX CLI')
     p.add_argument('--device', default='cuda',
                    help="'cuda' (default; raises without a card) or 'cpu'")
     p.add_argument('--cfg-options', nargs='+', default=None,
@@ -134,7 +137,8 @@ def main(argv=None) -> dict:
             if (it + 1) % cfg.checkpoint_interval == 0 or it + 1 == max_iters:
                 path = save_checkpoint(work_dir, it + 1,
                                        state.model.state_dict(),
-                                       train_state=train_state_dict(state))
+                                       train_state=train_state_dict(state),
+                                       max_to_keep=args.max_keep_ckpts)
                 print(f'saved {path}')
     finally:
         batches.close()

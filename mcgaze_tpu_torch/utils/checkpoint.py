@@ -21,14 +21,26 @@ _CKPT = re.compile(r'ckpt_(\d+)\.pth')
 
 
 def save_checkpoint(work_dir: str, step: int, state_dict: dict,
-                    train_state: Any = None) -> str:
+                    train_state: Any = None,
+                    max_to_keep: int | None = None) -> str:
     """Write ckpt_<step>.pth and, with train_state, ckpt_<step>_train.pth.
-    Returns the model file's path."""
+    With max_to_keep, remove the files of all but the newest max_to_keep
+    steps (the JAX save_checkpoint's pruning; the reference
+    CheckpointHook's max_keep_ckpts). Returns the model file's path."""
     path = osp.abspath(osp.join(work_dir, f'ckpt_{step}.pth'))
     cpu = {k: v.detach().cpu() for k, v in state_dict.items()}
     torch.save({'state_dict': cpu, 'meta': {'step': step}}, path)
     if train_state is not None:
         torch.save(train_state, train_path(path))
+    if max_to_keep:
+        steps = sorted(int(m.group(1)) for m in map(_CKPT.fullmatch,
+                                                    os.listdir(work_dir))
+                       if m)
+        for s in steps[:-max_to_keep]:
+            old = osp.join(work_dir, f'ckpt_{s}.pth')
+            for f in (old, train_path(old)):
+                if osp.exists(f):
+                    os.remove(f)
     return path
 
 

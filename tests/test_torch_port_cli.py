@@ -106,8 +106,9 @@ def ws(tmp_path_factory):
                 p.add_(cls_bias[name.split('.')[-2][:-len('_fc_cls')]])
     pth = osp.join(root, 'model.pth')
     torch.save({'state_dict': model.state_dict(), 'meta': {'step': 0}}, pth)
-    return dict(root=root, prefix=osp.join(root, 'frames') + '/', anns=anns,
-                pth=pth, videos=videos)
+    yield dict(root=root, prefix=osp.join(root, 'frames') + '/', anns=anns,
+               pth=pth, videos=videos)
+    shutil.rmtree(root)     # the .pth, the EMA checkpoints and the results
 
 
 def jax_results(ws, config):
@@ -354,6 +355,7 @@ def test_ema_refuses_without_ema_weights(ws, ema_ckpt, tmp_path):
         args[1] = path
         with pytest.raises(SystemExit, match='ema_momentum > 0'):
             pcli.main(args)
+    shutil.rmtree(tmp_path)
 
 
 def test_cuda_device_refused_without_card(ws):

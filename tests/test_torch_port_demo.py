@@ -13,6 +13,7 @@
 """
 import os
 import os.path as osp
+import shutil
 
 import numpy as np
 import pytest
@@ -117,7 +118,8 @@ def demo_run(tmp_path_factory):
     out = head_det.main([video, weights, '--out-dir', work, '--img-size',
                          str(IMG), '--batch', '4', '--conf-thres', '0.3',
                          '--save-conf', '--device', 'cpu'])
-    return dict(root=root, video=video, sd=sd, work=work, out=out)
+    yield dict(root=root, video=video, sd=sd, work=work, out=out)
+    shutil.rmtree(root)
 
 
 def test_head_det_matches_jax(demo_run):
@@ -162,7 +164,8 @@ def gaze_pth(tmp_path_factory):
     model = init_model(cfg.model, seed=7, device='cpu')
     path = str(tmp_path_factory.mktemp('port_demo_gaze') / 'gaze.pth')
     torch.save({'state_dict': model.state_dict()}, path)
-    return path
+    yield path
+    shutil.rmtree(osp.dirname(path))
 
 
 def test_gaze_demo_matches_jax(demo_run, gaze_pth, tmp_path):
@@ -205,6 +208,7 @@ def test_gaze_demo_matches_jax(demo_run, gaze_pth, tmp_path):
             'fusion_gazes'])
         assert ours.shape == ref.shape == (N_FRAMES, 3)
         np.testing.assert_allclose(ours, ref, rtol=0, atol=TOL)
+    shutil.rmtree(tmp_path)
 
 
 def test_demo_clis_refuse_cuda_without_card(demo_run, gaze_pth, tmp_path):

@@ -27,6 +27,7 @@ train steps, rank-sharded eval), on the CPU.
 import json
 import os
 import os.path as osp
+import shutil
 import socket
 import subprocess
 import sys
@@ -385,6 +386,7 @@ def test_gaze_step_two_ranks_equals_one(tmp_path):
                                    rtol=1e-5, err_msg=k)
     got = torch.load(tmp_path / 'params.pth')
     _assert_params_match(got, ref_sd, before)
+    shutil.rmtree(tmp_path)
 
 
 @pytest.mark.parametrize('model', ['instblink', 'tevit'])
@@ -404,6 +406,7 @@ def test_query_step_two_ranks_equals_one(tmp_path, model):
         assert r0['logs'][k] == r1['logs'][k]
     got = torch.load(tmp_path / 'params.pth')
     _assert_params_match(got, ref_sd, before)
+    shutil.rmtree(tmp_path)
 
 
 @pytest.fixture(scope='module')
@@ -437,8 +440,9 @@ def gaze_videos(tmp_path_factory):
     model = init_model(cfg.model, seed=7, device='cpu')
     pth = root / 'model.pth'
     torch.save({'state_dict': model.state_dict(), 'meta': {'step': 0}}, pth)
-    return dict(ann=str(ann), prefix=str(root / 'frames') + '/',
-                pth=str(pth))
+    yield dict(ann=str(ann), prefix=str(root / 'frames') + '/',
+               pth=str(pth))
+    shutil.rmtree(root)
 
 
 EVAL_OPTS = ['model.backbone_depth=26', 'model.num_stages=2',
@@ -486,6 +490,7 @@ def test_train_cli_mesh_and_validate_two_ranks(tmp_path, gaze_videos):
                                         'train_log.jsonl', 'val_log.jsonl']
     lines = (work / 'train_log.jsonl').read_text().splitlines()
     assert [json.loads(x)['step'] for x in lines] == [1, 2]
+    shutil.rmtree(tmp_path)
 
 
 # ------------------------------------------------ eval over several devices

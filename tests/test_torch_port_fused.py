@@ -15,7 +15,14 @@ atol 2e-5 (tests/test_fused_bottleneck.py's); its gradients 1e-4; a fused
 ResNet-50 1e-4 of each level's scale (f32 summed in another order through
 ~50 layers); the attention and the STQIHead 2e-5 (LN outputs are O(1));
 the whole model 1e-3 (the model parity tolerance).
+
+The fused model also exports: torch.export records K4 and K5 as the
+operators mcgaze::stqi_attention and mcgaze::fused_bottleneck_chain, one
+node per eager call; the loaded program equals the eager fused forward at
+1e-5 and the JAX fused forward at 1e-3; both operators pass
+torch.library.opcheck.
 """
+import shutil
 from functools import partial
 
 import numpy as np
@@ -351,17 +358,27 @@ def test_fused_head_state_dict_is_plain():
 
 # ----------------------------------------------------------------- model
 
-def test_fused_model_matches_jax(small_fused):
-    """Per-stage boxes, scores and gazes of the whole fused model."""
-    jmodel, variables, port, _ = small_fused
+@pytest.fixture(scope='module')
+def jax_fused_out(small_fused):
+    """The JAX fused model (its chain in interpret mode) on clip_inputs(12),
+    as numpy."""
+    jmodel, variables, _, _ = small_fused
     imgs, whwh = clip_inputs(12)
     with pytest.MonkeyPatch.context() as mp:
         interpret_chain(mp)
         jout = jax.jit(lambda v, i, w: jmodel.apply(v, i, w, clip_length=T))(
             variables, jnp.asarray(imgs), jnp.asarray(whwh))
+    return jax.tree_util.tree_map(np.asarray, jout)
+
+
+def test_fused_model_matches_jax(small_fused, jax_fused_out):
+    """Per-stage boxes, scores and gazes of the whole fused model."""
+    _, _, port, _ = small_fused
+    imgs, whwh = clip_inputs(12)
     with torch.inference_mode():
         pout = port(torch.from_numpy(imgs), torch.from_numpy(whwh))
-    for s, (js, ps) in enumerate(zip(jout['stages'], pout['stages'])):
+    for s, (js, ps) in enumerate(zip(jax_fused_out['stages'],
+                                     pout['stages'])):
         np.testing.assert_allclose(
             torch.sigmoid(ps['cls_logits']).numpy(),
             np.asarray(jax.nn.sigmoid(js['cls_logits'])), atol=1e-3,
@@ -393,6 +410,77 @@ def test_fused_fwd_dedup_equals_fwd(small_fused):
     torch.testing.assert_close(b[1], a[1], rtol=0, atol=1e-5)
     for k in a[2]:
         torch.testing.assert_close(b[2][k], a[2][k], rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------- export
+
+def counting(mp, module, name):
+    """Wrap module.name so that each call adds one to the returned list's
+    first entry."""
+    calls, fn = [0], getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        calls[0] += 1
+        return fn(*args, **kwargs)
+    mp.setattr(module, name, wrapped)
+    return calls
+
+
+def test_fused_export_matches_eager_and_jax(small_fused, jax_fused_out,
+                                            tmp_path):
+    """torch.export of the fused model (f32, two clips): the program holds
+    one mcgaze.stqi_attention node per stage, one
+    mcgaze.fused_bottleneck_chain node per fused chain, as many as the
+    eager forward makes calls; saved and loaded back, it equals the eager
+    fused forward of the same frozen weights at 1e-5 and the JAX fused
+    forward's last stage at 1e-3."""
+    import copy
+
+    from mcgaze_tpu_torch.tools.deployment.export_model import ClipForward
+    _, _, port, _ = small_fused
+    serve = ClipForward(copy.deepcopy(port).requires_grad_(False), T).eval()
+    imgs, whwh = map(torch.from_numpy, clip_inputs(12))
+    with pytest.MonkeyPatch.context() as mp, torch.inference_mode():
+        k4 = counting(mp, stqi_attention, 'stqi_attention_reference')
+        k5 = counting(mp, fused_bottleneck, 'chain_reference')
+        eager = serve(imgs, whwh)
+    assert k4[0] == SMALL['num_stages'] and k5[0] >= 1
+
+    program = torch.export.export(serve, (imgs, whwh))
+    targets = [str(nd.target) for nd in program.graph.nodes
+               if nd.op == 'call_function']
+    assert targets.count('mcgaze.stqi_attention.default') == k4[0]
+    assert targets.count('mcgaze.fused_bottleneck_chain.default') == k5[0]
+    path = str(tmp_path / 'fused.pt2')
+    torch.export.save(program, path)
+    loaded = torch.export.load(path).module()
+    with torch.inference_mode():
+        got = loaded(imgs, whwh)
+    for a, b in zip(got, eager):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+    last = jax_fused_out['stages'][-1]
+    boxes, scores, *gazes = (t.numpy() for t in got)
+    np.testing.assert_allclose(boxes, last['boxes'], rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(
+        scores, 1 / (1 + np.exp(-last['cls_logits'][..., 0])), atol=1e-3)
+    for k, g in zip(('fusion', 'face', 'eyes', 'head'), gazes):
+        np.testing.assert_allclose(g, last['gaze'][k], atol=1e-3, err_msg=k)
+    shutil.rmtree(tmp_path)
+
+
+@pytest.mark.parametrize('op', ['stqi_attention', 'fused_bottleneck_chain'])
+def test_operators_pass_opcheck(op):
+    """torch.library.opcheck on the CPU: schema, fake kernel against the
+    CPU kernel, and the dispatch of a traced call."""
+    if op == 'stqi_attention':
+        args = (*map(torch.from_numpy, attention_inputs(2)), T, HEADS)
+        fn = torch.ops.mcgaze.stqi_attention.default
+    else:
+        _, x, weights = chain_inputs(6, 10, seed=3)
+        args = (torch.from_numpy(x), weights, 6, 10)
+        fn = torch.ops.mcgaze.fused_bottleneck_chain.default
+    torch.library.opcheck(fn, args)
 
 
 # ------------------------------------------------------------- refusals

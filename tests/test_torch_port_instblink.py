@@ -22,6 +22,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import shutil
 
 import numpy as np
 import pytest
@@ -279,6 +280,7 @@ def test_cli_matches_jax_cli_path(pair, tiny_mpeblink, tmp_path):  # noqa: F811
         again = pcli.main([str(cfg_path), '--eval-only', out_json])
     assert _ap_lines(buf.getvalue()) == got_lines
     assert again['metrics'] == out['metrics']
+    shutil.rmtree(tmp_path)
 
 
 def test_decoders_agree(tiny_mpeblink):  # noqa: F811

@@ -50,7 +50,12 @@ def test_port_imports_no_jax():
                  'evaluation.track_eval', 'data.instblink_dataset',
                  'evaluation.instblink_driver', 'tools.test_instblink',
                  'train.hungarian', 'train.query_criterion',
-                 'train.query_loop', 'tools.train_instblink'):
+                 'train.query_loop', 'tools.train_instblink',
+                 'data.gaze360_prepare', 'data.rtgene_prepare',
+                 'data.mpeblink_prepare', 'tools.gaze360_img_reorganize',
+                 'tools.dataset_converters.gaze360.generate_json_from_ori',
+                 'tools.dataset_converters.rtgene.convert',
+                 'tools.dataset_converters.mpeblink_build_raw_frames_dataset'):
         assert f'mcgaze_tpu_torch.{name}' in walked, name
 
 

@@ -726,3 +726,25 @@ def test_stqi_attention_kernel_refuses_what_it_does_not_take(cuda_device):
     wide, wide_weights, _ = attention_case(cuda_device, clips=1, c=512)
     with pytest.raises(ValueError, match='up to 256'):
         launch(wide, *wide_weights, t, heads=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('op', ['stqi_attention', 'fused_bottleneck_chain'])
+def test_operators_launch_the_kernels(cuda_device, op):
+    """The operators' CUDA kernels are the launch wrappers: one call adds
+    the wrapper's launches to its count and equals the eager call bit for
+    bit (K4 at 3 clips; K5 bf16 over two blocks, 7 convolutions)."""
+    if op == 'stqi_attention':
+        query, weights, t = attention_case(cuda_device)
+        args, module, launches = (query, *weights, t, 8), stqi_attention, 1
+        eager = stqi_attention.fused_stqi_attention(query, *weights, t)
+    else:
+        _, x, weights, h, w = chain_case(cuda_device, torch.bfloat16)
+        args, module, launches = (x, weights, h, w), fused_bottleneck, 7
+        with torch.no_grad():
+            eager = fused_bottleneck.fused_bottleneck_chain(x, weights, h, w)
+    before = module.launch_count
+    got = getattr(torch.ops.mcgaze, op)(*args)
+    torch.cuda.synchronize()
+    assert module.launch_count == before + launches
+    assert torch.equal(got, eager)

@@ -8,6 +8,7 @@ normalised pixels, exact on u8 pixels, shapes and GT arrays. Skips only
 where the library cannot be built.
 """
 import dataclasses
+import shutil
 
 import numpy as np
 import pytest
@@ -42,7 +43,8 @@ def frames_on_disk(tmp_path_factory):
         cv2.imwrite(p, img)
         paths.append(p)
         imgs.append(cv2.cvtColor(img, cv2.COLOR_BGR2RGB))
-    return paths, imgs
+    yield paths, imgs
+    shutil.rmtree(d)
 
 
 def python_u8(img, crop, flip, scale, canvas):
@@ -164,10 +166,12 @@ def test_driver_native_decode_matches_jax_and_cv2(frames_on_disk, ship_uint8,
 def data_cfg(tmp_path_factory):
     from mcgaze_tpu_torch.data.dataset import DataConfig
     from tests.test_data_and_driver import make_dataset
-    ann, prefix = make_dataset(str(tmp_path_factory.mktemp('port_native')))
-    return DataConfig(ann_file=ann, img_prefix=prefix, clip_length=7,
-                      scale=(32, 32), canvas=(32, 32), crop_size=0.68,
-                      flip_ratio=0.5, batch_size=2)
+    root = tmp_path_factory.mktemp('port_native')
+    ann, prefix = make_dataset(str(root))
+    yield DataConfig(ann_file=ann, img_prefix=prefix, clip_length=7,
+                     scale=(32, 32), canvas=(32, 32), crop_size=0.68,
+                     flip_ratio=0.5, batch_size=2)
+    shutil.rmtree(root)
 
 
 def test_dataset_native_batches_match_python(data_cfg):

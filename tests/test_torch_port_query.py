@@ -19,6 +19,7 @@ and a legacy MPEblink dataset config, field for field.
 """
 import dataclasses
 import os.path as osp
+import shutil
 import subprocess
 import sys
 import textwrap
@@ -221,7 +222,8 @@ def reference_pth(tmp_path_factory):
             path, init, num_stages=CONVERT_CFG.num_stages,
             num_cls_fcs=CONVERT_CFG.num_cls_fcs,
             num_reg_fcs=CONVERT_CFG.num_reg_fcs)
-    return path, to_numpy_tree(jvars)
+    yield path, to_numpy_tree(jvars)
+    shutil.rmtree(osp.dirname(path))
 
 
 def _convert_port_cfg():
@@ -278,6 +280,7 @@ def test_blink_tower_bias_refused_by_both(reference_pth, tmp_path):
     with pytest.raises(RuntimeError, match='blink_fcs.0.bias'):
         model.load_state_dict(clean_reference_query_state_dict(
             {k: torch.from_numpy(v) for k, v in sd.items()}), strict=True)
+    shutil.rmtree(tmp_path)
 
 
 def test_init_matches_jax_layout(pair):

@@ -20,6 +20,7 @@
 """
 import functools
 import os.path as osp
+import shutil
 
 import numpy as np
 import pytest
@@ -363,3 +364,4 @@ def test_train_cli_writes_pth_the_jax_converter_reads(tmp_path):
                   '--max-iters', '3', '--work-dir', work, '--resume-from',
                   out['checkpoint'], '--cfg-options', *TINY_OPTS])
     assert len(again['history']) == 1 and again['state'].step == 3
+    shutil.rmtree(tmp_path)

@@ -21,7 +21,8 @@
   optimizer, --ema). Orbax directories are refused.
 * Export: export_model on the CPU, --selftest, the saved program equal to
   the eager forward at 1e-5 on other inputs, with the FPN RoIAlign as one
-  mcgaze::roi_align_fpn node per stage; the fused configuration raises.
+  mcgaze::roi_align_fpn node per stage; the fused configuration exports
+  with its K4 and K5 operator nodes.
 * Kernel loading: threads reaching a library's first load together build
   and load it once.
 * The CLIs default to the card and refuse without one.
@@ -31,6 +32,7 @@ import functools
 import json
 import os
 import os.path as osp
+import shutil
 import sys
 import threading
 import time
@@ -148,6 +150,7 @@ def ws(tmp_path_factory):
     yield dict(root=root, pth=pth, pkg=pkg, bodies=bodies, frames=frames,
                img=img_path, proc=proc)
     proc.close()
+    shutil.rmtree(root)     # the .pth and its package
 
 
 @pytest.fixture(scope='module')
@@ -494,6 +497,7 @@ def test_publish_model_pth(ws, tmp_path):
     os.makedirs(orbax)
     with pytest.raises(SystemExit, match='torch .pth'):
         publish_model.main([orbax, str(tmp_path / 'y')])
+    shutil.rmtree(tmp_path)
 
 
 # ---------------------------------------------------------------- export
@@ -525,15 +529,29 @@ def test_export_matches_eager(tmp_path):
     with torch.inference_mode():
         for a, b in zip(loaded(imgs, whwh), eager(imgs, whwh)):
             torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    shutil.rmtree(tmp_path)
 
 
 def test_export_refuses_fused_configuration(tmp_path):
+    """The fused configuration no longer refuses: the CLI exports it with
+    --selftest, K4 and K5 as operator nodes beside K1's (held against the
+    JAX fused forward in tests/test_torch_port_fused.py). The name is the
+    one the test had when it checked the refusal; it now checks the
+    export that replaced it."""
     opts = EXPORT_OPTS + ['model.backbone_impl=fused',
                           'model.fused_attention=True']
-    with pytest.raises(NotImplementedError, match='K5.*K4'):
-        export_model.main([CONFIG, '--out', str(tmp_path / 'f.pt2'),
-                           '--device', 'cpu', '--cfg-options', *opts])
-    assert not osp.exists(tmp_path / 'f.pt2')
+    out = str(tmp_path / 'f.pt2')
+    res = export_model.main([CONFIG, '--out', out, '--selftest', '--device',
+                             'cpu', '--cfg-options', *opts])
+    assert osp.exists(out)
+    assert res['selftest_max_abs_err'] <= export_model.SELFTEST_ATOL
+    targets = [str(nd.target) for nd in res['program'].graph.nodes
+               if nd.op == 'call_function']
+    assert targets.count('mcgaze.roi_align_fpn.default') == 2   # per stage
+    assert targets.count('mcgaze.stqi_attention.default') == 2  # per stage
+    # R26 has one block a stage: only layer1's is a stride-1 chain
+    assert targets.count('mcgaze.fused_bottleneck_chain.default') == 1
+    shutil.rmtree(tmp_path)
 
 
 # --------------------------------------------------------- kernel loading

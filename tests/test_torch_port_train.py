@@ -24,6 +24,7 @@ import dataclasses
 import functools
 import json
 import os.path as osp
+import shutil
 import subprocess
 import sys
 import textwrap
@@ -593,7 +594,8 @@ def test_synthetic_batches_match_jax_cli():
 def test_train_cli_checkpoint_reloads(tmp_path):
     """--synthetic --device cpu --max-iters 2 writes ckpt_2.pth, which a
     fresh model loads with strict=True through clean_reference_state_dict,
-    and ckpt_2_train.pth, from which --auto-resume continues at step 2."""
+    and ckpt_2_train.pth, from which --auto-resume continues at step 2;
+    --max-keep-ckpts 1 then leaves only step 3's files."""
     from mcgaze_tpu_torch.tools.train import main
     from mcgaze_tpu_torch.utils.checkpoint import (find_latest_checkpoint,
                                                    restore_checkpoint)
@@ -619,9 +621,14 @@ def test_train_cli_checkpoint_reloads(tmp_path):
     assert [json.loads(x)['step'] for x in lines] == [1, 2]
 
     resumed = main(argv[:argv.index('--max-iters') + 1] + ['3'] +
-                   argv[argv.index('--max-iters') + 2:] + ['--auto-resume'])
+                   argv[argv.index('--max-iters') + 2:] +
+                   ['--auto-resume', '--max-keep-ckpts', '1'])
     assert resumed['state'].step == 3 and len(resumed['history']) == 1
     assert osp.exists(tmp_path / 'ckpt_3_train.pth')
+    # --max-keep-ckpts 1 pruned step 2's pair
+    assert sorted(p.name for p in tmp_path.glob('ckpt_*')) == [
+        'ckpt_3.pth', 'ckpt_3_train.pth']
+    shutil.rmtree(tmp_path)         # a model + train pair, ~0.6 GB
 
 
 @pytest.mark.parametrize('flag', ['--validate', '--mesh=2,1'])
@@ -691,3 +698,17 @@ def test_checkpoint_files(tmp_path):
     ckpt = restore_checkpoint(str(tmp_path / 'ckpt_10.pth'))
     assert ckpt['meta'] == {'step': 10}
     assert torch.equal(ckpt['state_dict']['w'], torch.full((2,), 10))
+
+
+def test_checkpoint_max_to_keep(tmp_path):
+    """Three saves with max_to_keep=2 leave the last two model/train
+    pairs, as the JAX save_checkpoint prunes its directories; a model file
+    saved without a train file is pruned alone."""
+    from mcgaze_tpu_torch.utils.checkpoint import save_checkpoint
+    for s in (1, 2, 3):
+        save_checkpoint(str(tmp_path), s, {'w': torch.full((2,), s)},
+                        train_state={'step': s}, max_to_keep=2)
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        'ckpt_2.pth', 'ckpt_2_train.pth', 'ckpt_3.pth', 'ckpt_3_train.pth']
+    save_checkpoint(str(tmp_path), 10, {'w': torch.ones(2)}, max_to_keep=1)
+    assert [p.name for p in tmp_path.iterdir()] == ['ckpt_10.pth']
