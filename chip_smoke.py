@@ -147,6 +147,20 @@ Phases, each printing one JSON line (any failure exits non-zero):
           stage's inputs at TOL_F32_REL, the stage head fed either at
           TOL_E2E, and the composed roi_impl='mm' forward's error per stage
           reported
+  tevit_kernel, tevit_train, tevit_eval  K1 and K3 at TeViT's shapes, and
+          the two instblink phases above with the TeViT config
+  ddp     the gaze train CLI and tools.test under an NCCL group of one
+          process against the same runs without it (phase_ddp)
+  learning  the learning proofs at the JAX tools' counts, f32, TF32 off:
+          tools.analysis_tools.crop_sensitivity (gaze: 1500 steps on 20
+          fabricated videos, scored with the fixed and the reference crop)
+          and tools.analysis_tools.instblink_burnin (600 steps, scored at
+          its first and last checkpoint), through the port's train and eval
+          CLIs on .npy frames (npy_frames: no OpenCV on this machine); the
+          counters reset before and read after each CLI run: K1 and K3 once
+          per stage on every train step, K1 once per stage on every eval
+          forward; finite metrics inside the band a model that learned
+          clears (phase_learning); seconds of each tool, ms per step
 Then the `kernels` line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 
@@ -2967,6 +2981,203 @@ def phase_ddp(device, steps=2, opts=(), lengths=(60, 33)):
     return dict(train=train_launches, test=test_launches)
 
 
+# ------------------------------------------------------------- learning
+
+# the JAX tools' counts (tools/analysis_tools/*.py), as the proofs' own
+# defaults give them
+GAZE_PROOF = ('--iters', '1500', '--videos', '20', '--frames', '24')
+INSTBLINK_PROOF = ('--iters', '600', '--train-videos', '20',
+                   '--test-videos', '6')
+# the band a model that learned clears: about twice the JAX package's
+# error and 0.85x / 0.55x its APs (its tools' readings, taken on a TPU:
+# MAE-Front180 1.247 deg fixed crop, 1.41 / 1.33 reference crop; track mAP
+# 0.9252, blink action AP 0.5333); random weights score tens of degrees
+# and APs near 0. The InstBlink half is reported only (phase_learning)
+BAND_FIXED_MAE = 2.5
+BAND_REFERENCE_MAE = 3.0
+BAND_TRACK_MAP = 0.80
+BAND_BLINK_AP = 0.30
+
+
+def phase_learning(device, gaze_args=GAZE_PROOF,
+                   instblink_args=INSTBLINK_PROOF, bands=True):
+    """The learning proofs on the card, f32 with TF32 off: the gaze tool
+    (crop_sensitivity.main: R26, 2 stages, 64 px, 8 clips a step, trained
+    then scored with the fixed crop and the reference crop at seeds 0 and
+    1) and the InstBlink tool (instblink_burnin.main: R-50, 3 stages, 20
+    queries, 4 clips x 5 frames on 96x128, scored at its first and last
+    checkpoint), each on its fabricated .npy dataset through the port's
+    train and eval CLIs in this process. The launch counters reset before
+    and read after each CLI run: K1 and K3 once per stage on every train
+    step (launches = stages x steps), K1 once per stage on every eval
+    forward and no K3 there, no K4 or K5. Every metric finite; each
+    tool's loss over its last 50 steps below its first 50. With `bands`,
+    the gaze fixed-crop MAE-Front180 at most BAND_FIXED_MAE and each
+    reference seed at most BAND_REFERENCE_MAE. The InstBlink band (track
+    mAP >= BAND_TRACK_MAP, blink action AP >= BAND_BLINK_AP at the last
+    checkpoint) is reported, not checked: no run of the port on the card
+    and no f32 run of the JAX package's own tool clears its blink half
+    (ROADMAP Queue 3). Seconds of each tool, ms per train step (median
+    after the first 10 steps). A CPU rehearsal passes small counts and
+    bands=False. Returns the launches of all runs."""
+    import contextlib
+    import shutil
+
+    from mcgaze_tpu_torch.evaluation.driver import clip_slices
+    from mcgaze_tpu_torch.evaluation.instblink_driver import clip_windows
+    from mcgaze_tpu_torch.tools import test as test_cli
+    from mcgaze_tpu_torch.tools import test_instblink, train_instblink
+    from mcgaze_tpu_torch.tools import train as train_cli
+    from mcgaze_tpu_torch.tools.analysis_tools import (crop_sensitivity,
+                                                       instblink_burnin)
+    from mcgaze_tpu_torch.utils.config import load_config
+    from mcgaze_tpu_torch.utils.query_config import load_query_config
+
+    root = os.path.join(ROOT, 'work_dirs', 'chip_smoke_learning')
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    runs = []
+    clis = (train_cli, test_cli, train_instblink, test_instblink)
+    mains = {cli: cli.main for cli in clis}
+
+    def counted(cli):
+        def run(argv):
+            reset_counters()
+            out = mains[cli](argv)
+            torch.cuda.synchronize()
+            runs.append(dict(cli=cli.__name__.rsplit('.', 1)[1],
+                             launches=fused_counters(), out=out))
+            return out
+        return run
+
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    log = io.StringIO()
+    seconds = {}
+    try:
+        for cli in clis:
+            cli.main = counted(cli)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        with contextlib.redirect_stdout(log):
+            t0 = time.perf_counter()
+            gaze = crop_sensitivity.main(
+                [*gaze_args, '--work', os.path.join(root, 'gaze'),
+                 '--device', str(device)])
+            seconds['gaze'] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            blink = instblink_burnin.main(
+                [*instblink_args, '--root', os.path.join(root, 'instblink'),
+                 '--device', str(device)])
+            seconds['instblink'] = time.perf_counter() - t0
+    finally:
+        for cli in clis:
+            cli.main = mains[cli]
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+        if len(seconds) < 2:
+            print(log.getvalue()[-6000:], file=sys.stderr)
+
+    gaze_stages = load_config(os.path.join(
+        root, 'gaze', 'cfg.py')).model.num_stages
+    ib_stages = load_query_config(os.path.join(
+        root, 'instblink', 'burnin_cfg.py')).model.num_stages
+
+    def lengths(ann):
+        with open(ann) as f:
+            return [v['length'] for v in json.load(f)['videos']]
+    gaze_lengths = lengths(os.path.join(root, 'gaze', 'anno.json'))
+    ib_lengths = lengths(os.path.join(root, 'instblink', 'test.json'))
+    check([r['cli'] for r in runs] == ['train', 'test', 'test', 'test',
+                                       'train_instblink']
+          + ['test_instblink'] * len(blink['evals']),
+          f'learning ran {[r["cli"] for r in runs]}')
+    summary = []
+    for r in runs:
+        k = r['launches']
+        out = r['out']
+        if r['cli'].startswith('train'):
+            stages = gaze_stages if r['cli'] == 'train' else ib_stages
+            steps = len(out['history'])
+            expected = dict(k1=stages * steps, k3=stages * steps, k4=0,
+                            k5=0)
+            what = f'{stages} K1 and {stages} K3 on every one of {steps} steps'
+            losses = [h['loss'] for h in out['history']]
+            check(np.isfinite(losses).all(), f'{r["cli"]}: a loss is not '
+                  'finite')
+            window = max(1, min(50, steps // 2))
+            check(np.mean(losses[-window:]) < np.mean(losses[:window]),
+                  f'{r["cli"]}: the loss did not fall: first '
+                  f'{np.mean(losses[:window])}, last '
+                  f'{np.mean(losses[-window:])}')
+            times = [h['time'] for h in out['history']][10:] or \
+                [h['time'] for h in out['history']]
+            extra = dict(steps=steps, loss_every_100=losses[::100],
+                         last_loss=losses[-1],
+                         ms_per_step=float(np.median(times)) * 1e3)
+            if 'match_ms' in out['history'][0]:
+                extra['match_ms'] = float(np.median(
+                    [h['match_ms'] for h in out['history']]))
+        else:
+            ev = out['evaluator']
+            if r['cli'] == 'test':
+                forwards = sum(
+                    -(-len(clip_slices(n, ev.cfg.clip_length,
+                                       ev.cfg.stride)) // ev.cfg.clip_batch)
+                    for n in gaze_lengths)
+                stages = gaze_stages
+            else:
+                ec = ev.cfg
+                forwards = sum(
+                    -(-len(clip_windows(n, min(ec.clip_length, n),
+                                        min(ec.clip_length, n)
+                                        - ec.overlap)) // ec.clip_batch)
+                    for n in ib_lengths)
+                stages = ib_stages
+            expected = dict(k1=stages * forwards, k3=0, k4=0, k5=0)
+            what = f'{stages} K1 on every one of {forwards} forwards'
+            extra = dict(forwards=forwards, seconds=out['seconds'])
+        check(k == expected, f'learning {r["cli"]} launched {k}, expected '
+              f'{what}, no K3 in eval, no K4 or K5')
+        summary.append(dict(cli=r['cli'], launches=k, **extra))
+
+    maes = [gaze['fixed_mae'], *gaze['reference_seeds']]
+    aps = [v for s in blink['checkpoints'].values() for v in s.values()]
+    check(np.isfinite(maes + [gaze['delta_deg']]).all(),
+          f'learning: gaze MAEs not finite: {gaze}')
+    check(np.isfinite(aps).all() and len(blink['checkpoints']) >= 1,
+          f'learning: InstBlink APs not finite: {blink["checkpoints"]}')
+    launches = dict(k1=sum(r['launches']['k1'] for r in runs),
+                    k3=sum(r['launches']['k3'] for r in runs))
+    last = blink['checkpoints'][max(blink['checkpoints'])]
+    emit('learning', gaze={k: gaze[k] for k in (
+             'fixed_mae', 'reference_mae_mean', 'reference_seeds',
+             'delta_deg')},
+         gaze_args=list(gaze_args),
+         instblink={str(k): v for k, v in blink['checkpoints'].items()},
+         instblink_args=list(instblink_args), runs=summary,
+         seconds=seconds, launches=launches,
+         gaze_band=dict(fixed_mae=BAND_FIXED_MAE,
+                        reference_mae=BAND_REFERENCE_MAE, checked=bands),
+         instblink_band=dict(
+             track_mAP=BAND_TRACK_MAP, blink_ap=BAND_BLINK_AP,
+             cleared=bool(last['track_mAP'] >= BAND_TRACK_MAP
+                          and last['blink_ap'] >= BAND_BLINK_AP),
+             checked=False),
+         precision='float32, TF32 off', card=nvidia_smi())
+    if bands:
+        check(gaze['fixed_mae'] <= BAND_FIXED_MAE,
+              f'learning: gaze fixed-crop MAE-Front180 '
+              f'{gaze["fixed_mae"]} > {BAND_FIXED_MAE}')
+        check(max(gaze['reference_seeds']) <= BAND_REFERENCE_MAE,
+              f'learning: gaze reference-crop MAE-Front180 '
+              f'{gaze["reference_seeds"]} > {BAND_REFERENCE_MAE}')
+    del runs, gaze, blink
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this test '
@@ -3027,6 +3238,7 @@ def main():
     tv_eval_launches = phase_instblink_eval(
         device, tv_ckpt, config=TEVIT_CONFIG, phase='tevit_eval')
     ddp_launches = phase_ddp(device)
+    learning_launches = phase_learning(device)
 
     # each kernel beside the case of the path that runs it: K1 at the eval
     # shape (bf16, frame_idx), K3 at the training shape (f32, identity), K4
@@ -3080,7 +3292,8 @@ def main():
                   tevit_train=tv_train_launches['k1'],
                   tevit_eval=tv_eval_launches,
                   ddp_train=ddp_launches['train']['k1'],
-                  ddp_test=ddp_launches['test']), k1,
+                  ddp_test=ddp_launches['test'],
+                  learning=learning_launches['k1']), k1,
              tevit_cases(tevit_k1)),
         line('roi_align_fpn_bwd',
              'mcgaze_tpu_torch/csrc/roi_align_fpn_bwd.cu',
@@ -3088,7 +3301,8 @@ def main():
              dict(train=train_launches['k3'],
                   instblink_train=ib_train_launches['k3'],
                   tevit_train=tv_train_launches['k3'],
-                  ddp_train=ddp_launches['train']['k3']), k3,
+                  ddp_train=ddp_launches['train']['k3'],
+                  learning=learning_launches['k3']), k3,
              tevit_cases(tevit_k3)),
         line('fused_stqi_attention',
              'mcgaze_tpu_torch/csrc/stqi_attention.cu',

@@ -456,9 +456,13 @@ __device__ __forceinline__ void copy_chunks(const Args& a, const Shared& sh) {
         ++oldest;
       }
       if (in_use == 0) head = 0;
-      const int gap = head + bytes > a.ring_bytes ? a.ring_bytes - head : 0;
+      // a chunk that does not fit before the ring's end starts at 0; the
+      // bytes it skips (none when the last chunk ended at the end) count
+      // as used until it is reclaimed
+      const bool wrap = head + bytes > a.ring_bytes;
+      const int gap = wrap ? a.ring_bytes - head : 0;
       if (k - oldest < entries && in_use + gap + bytes <= a.ring_bytes) {
-        const int off = gap > 0 ? 0 : head;
+        const int off = wrap ? 0 : head;
         head = off + bytes;
         in_use += gap + bytes;
         if (lane == k % entries) span = gap + bytes;

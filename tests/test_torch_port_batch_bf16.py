@@ -43,6 +43,7 @@ from mcgaze_tpu_torch.models.mcgaze import MCGazeModel, ModelConfig
 from mcgaze_tpu_torch.utils.convert import jax_variables_to_state_dict
 from tests.test_torch_port_model import (IMG, SMALL, T, random_variables,
                                          to_numpy_tree)
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401
 
 SEEDS = range(11, 17)
 BUCKETS = range(3)

@@ -42,6 +42,7 @@ from mcgaze_tpu_torch.tools import test as ptest
 from mcgaze_tpu_torch.tools import test_gaze360_gaze as pcli
 from mcgaze_tpu_torch.utils.cfg_options import apply_overrides
 from mcgaze_tpu_torch.utils.config import load_config
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401
 
 cv2 = pytest.importorskip('cv2')
 

@@ -31,6 +31,7 @@ from mcgaze_tpu_torch.tools.dataset_converters.gaze360 import \
     generate_json_from_ori as pgenerate
 from mcgaze_tpu_torch.tools.dataset_converters.rtgene import \
     convert as prtgene
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401
 
 cv2 = pytest.importorskip('cv2')
 

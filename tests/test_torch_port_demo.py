@@ -25,6 +25,7 @@ from mcgaze_tpu_torch.models import yolov5 as py
 from mcgaze_tpu_torch.models.mcgaze import init_model
 from mcgaze_tpu_torch.utils.cfg_options import apply_overrides
 from mcgaze_tpu_torch.utils.config import load_config
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 L2CS = osp.join(REPO, 'configs', 'multiclue_gaze',

@@ -38,6 +38,7 @@ import torch
 
 import mcgaze_tpu_torch.parallel.distributed as D
 from mcgaze_tpu_torch.parallel import mesh as pmesh
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 GAZE_CFG = osp.join(REPO, 'configs/multiclue_gaze/multiclue_gaze_r50_gaze360.py')

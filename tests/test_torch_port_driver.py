@@ -25,6 +25,7 @@ from mcgaze_tpu_torch.models.mcgaze import MCGazeModel, ModelConfig
 from mcgaze_tpu_torch.utils.convert import jax_variables_to_state_dict
 from tests.test_torch_port_model import SMALL, random_variables, \
     to_numpy_tree
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401
 
 W, H, CANVAS = 64, 48, (32, 32)
 BASE = dict(scale=CANVAS, canvas=CANVAS, crop_ratio=0.84, clip_batch=2)

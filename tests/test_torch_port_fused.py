@@ -45,6 +45,7 @@ from mcgaze_tpu_torch.ops import fused_bottleneck, stqi_attention
 from mcgaze_tpu_torch.utils.convert import jax_variables_to_state_dict
 from tests.test_torch_port_model import (SMALL, T, clip_inputs,
                                          random_variables, to_numpy_tree)
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401
 
 FUSED = dict(backbone_impl='fused', fused_attention=True)
 

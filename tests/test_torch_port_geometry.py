@@ -11,6 +11,7 @@ import jax.numpy as jnp
 
 from mcgaze_tpu import geometry as G
 from mcgaze_tpu_torch import geometry as P
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401
 
 
 def _boxes(rng, n):

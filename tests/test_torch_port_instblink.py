@@ -52,6 +52,7 @@ from mcgaze_tpu_torch.tools import test_instblink as pcli
 from tests.test_instblink_data import tiny_mpeblink  # noqa: F401
 from tests.test_torch_port_query import TINY, pair  # noqa: F401
 from tests.test_track_eval_oracle import _make_case, _ours_maps
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401
 
 cv2 = pytest.importorskip('cv2')
 

@@ -1,6 +1,7 @@
 """The port imports no JAX: a fresh interpreter imports every module of
-mcgaze_tpu_torch, and none of jax, flax or mcgaze_tpu is loaded. And
-chip_smoke.py refuses to run without a card."""
+mcgaze_tpu_torch, and none of jax, flax or mcgaze_tpu is loaded; the
+learning proofs load no cv2 either. And chip_smoke.py refuses to run
+without a card."""
 import os.path as osp
 import shutil
 import subprocess
@@ -8,6 +9,7 @@ import sys
 
 import pytest
 import torch
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 
@@ -55,8 +57,35 @@ def test_port_imports_no_jax():
                  'data.mpeblink_prepare', 'tools.gaze360_img_reorganize',
                  'tools.dataset_converters.gaze360.generate_json_from_ori',
                  'tools.dataset_converters.rtgene.convert',
-                 'tools.dataset_converters.mpeblink_build_raw_frames_dataset'):
+                 'tools.dataset_converters.mpeblink_build_raw_frames_dataset',
+                 'tools.analysis_tools.npy_frames',
+                 'tools.analysis_tools.crop_sensitivity',
+                 'tools.analysis_tools.instblink_burnin'):
         assert f'mcgaze_tpu_torch.{name}' in walked, name
+
+
+_LEARNING_PROBE = r'''
+import sys
+from mcgaze_tpu_torch.tools.analysis_tools import (crop_sensitivity,
+                                                   instblink_burnin,
+                                                   npy_frames)
+with npy_frames.npy_frames():
+    pass
+bad = sorted(m for m in sys.modules
+             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'mcgaze_tpu',
+                                    'cv2'))
+print(bad)
+assert not bad, bad
+'''
+
+
+def test_learning_tools_import_no_jax_and_no_cv2():
+    """The learning proofs and their frame stand-in (which imports the
+    readers it replaces) run where there is no OpenCV: importing them
+    pulls in none of jax, mcgaze_tpu or cv2."""
+    out = subprocess.run([sys.executable, '-c', _LEARNING_PROBE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
 
 
 def test_chip_smoke_refuses_without_card(tmp_path):

@@ -9,6 +9,7 @@ from mcgaze_tpu_torch.models.layers import init_weights
 from mcgaze_tpu_torch.models.resnet import Bottleneck
 from mcgaze_tpu_torch.ops import fused_bottleneck
 from mcgaze_tpu_torch.tools import kernel_bounds
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401
 
 
 def _folded(cin, mid, dtype):

@@ -202,6 +202,29 @@ def test_roi_align_kernel_footprint_beyond_a_chunk(cuda_device, dtype,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_roi_align_kernel_chunk_that_ends_at_the_ring_end(cuda_device,
+                                                           dtype):
+    """A chunk that ends exactly at the ring's last byte: the next one
+    starts at 0 (it once started one past the ring's end, an illegal
+    address). One RoI of the InstBlink learning proof's step (a 96x128
+    canvas, C = 64, level 1: 21 chunks at a 16 KB ring), then every ring
+    from 4 KB to 64 KB in 128-byte steps, each as the full ring gives it."""
+    rng = np.random.RandomState(4)
+    feats = tuple(torch.from_numpy(rng.randn(1, 96 // s, 128 // s, 64)
+                                   .astype(np.float32)).to(cuda_device, dtype)
+                  for s in (4, 8, 16, 32))
+    rois = torch.tensor([[[-54.342873, -2.6034966, 201.47107, 61.4343]]],
+                        device=cuda_device)
+    got = _check_k1(feats, rois, None)
+    for ring in range(4096, 65536 + 1, 128):
+        other = roi_align_cuda.launch_roi_align_fpn(feats, rois,
+                                                    _ring_bytes=ring)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), _bits(other)), ring
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_roi_align_kernel_scalar_path(cuda_device, dtype):
     """C = 62 is a multiple of neither vector width (4 f32, 8 bf16): the
     kernel reads scalars from global memory."""

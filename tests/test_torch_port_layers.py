@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from mcgaze_tpu_torch.models.layers import LN_EPS, LayerNorm
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401
 
 MAX_DIFFERING = 1e-3
 

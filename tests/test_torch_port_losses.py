@@ -22,6 +22,7 @@ from mcgaze_tpu_torch.models.mcgaze import ModelConfig
 from mcgaze_tpu_torch.ops import losses as PL
 from mcgaze_tpu_torch.train import criterion as pcrit
 from mcgaze_tpu_torch.train.targets import flatten_targets as pflatten
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401
 
 REL = 1e-6
 REL_CRIT = 1e-5

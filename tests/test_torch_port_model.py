@@ -26,6 +26,7 @@ from mcgaze_tpu_torch.models.mcgaze import MCGazeModel, ModelConfig
 from mcgaze_tpu_torch.utils.convert import (clean_reference_state_dict,
                                             jax_variables_to_state_dict)
 from tests.test_torch_convert import reference_state_dict
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(backbone_depth=26, num_stages=2, ffn_channels=256,
              stage_loss_weights=(1.0, 1.0))

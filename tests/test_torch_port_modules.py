@@ -15,6 +15,7 @@ import jax.numpy as jnp
 
 from mcgaze_tpu.models.mcgaze import MCGazeModel as JModel
 from tests.test_torch_port_model import T, clip_inputs, small_pair  # noqa: F401
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401
 
 TOL = 2e-5
 

@@ -35,6 +35,7 @@ from tests.test_msgshift_torch_parity import (DEPTHS, EMBED, HEADS, MLP,
                                               PADS, PATCH, SHIFT, SR,
                                               STRIDES, msgshift_state_dict)
 from tests.test_torch_port_model import random_variables, to_numpy_tree
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401
 
 M = 4
 CHS = tuple(EMBED * h for h in HEADS)

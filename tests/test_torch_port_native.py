@@ -17,6 +17,7 @@ import torch
 from mcgaze_tpu_torch.data import transforms as T
 from mcgaze_tpu_torch.data.native_loader import (NativeClipLoader,
                                                  native_available)
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401
 
 cv2 = pytest.importorskip('cv2')
 

@@ -30,6 +30,7 @@ from mcgaze_tpu_torch.utils.convert import jax_variables_to_state_dict
 from tests.test_torch_port_model import (SMALL, T, clip_inputs,  # noqa: F401
                                          random_variables, small_pair,
                                          to_numpy_tree)
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401
 
 TOL = 2e-5
 TOL_JAX_MODEL = 1e-3

@@ -39,6 +39,7 @@ from mcgaze_tpu_torch.utils.convert import (clean_reference_query_state_dict,
 from tests.test_query_convert import CFG as CONVERT_CFG
 from tests.test_query_convert import query_state_dict
 from tests.test_torch_port_model import random_variables, to_numpy_tree
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 INSTBLINK_CFG = osp.join(ROOT, 'configs/instblink/instblink_r50_mpeblink.py')

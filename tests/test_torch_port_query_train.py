@@ -45,6 +45,7 @@ from mcgaze_tpu_torch.utils.convert import jax_query_variables_to_state_dict
 from tests.test_torch_port_model import random_variables, to_numpy_tree
 from tests.test_torch_port_query import H, TINY, W
 from tests.test_torch_port_train import STEP_OC, _assert_deltas_match
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 INSTBLINK_CFG = osp.join(ROOT, 'configs/instblink/instblink_r50_mpeblink.py')

@@ -18,6 +18,7 @@ from mcgaze_tpu.ops.roi_align_pallas import roi_align_fpn_pallas
 from mcgaze_tpu_torch.ops import roi_align as pra
 from mcgaze_tpu_torch.ops import roi_align_cuda
 from tests.test_torch_port_kernels import make_pyramid, mixed_rois
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401
 
 TOL_F32 = 1e-5
 

@@ -52,6 +52,7 @@ from mcgaze_tpu_torch.tools.deployment import (export_model, package_model,
 from mcgaze_tpu_torch.tools.model_converters import publish_model
 from mcgaze_tpu_torch.utils.cfg_options import apply_overrides
 from mcgaze_tpu_torch.utils.config import load_config
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 CONFIG = osp.join(REPO, 'configs', 'multiclue_gaze',
@@ -532,12 +533,10 @@ def test_export_matches_eager(tmp_path):
     shutil.rmtree(tmp_path)
 
 
-def test_export_refuses_fused_configuration(tmp_path):
-    """The fused configuration no longer refuses: the CLI exports it with
-    --selftest, K4 and K5 as operator nodes beside K1's (held against the
-    JAX fused forward in tests/test_torch_port_fused.py). The name is the
-    one the test had when it checked the refusal; it now checks the
-    export that replaced it."""
+def test_export_fused_configuration(tmp_path):
+    """The CLI exports the fused configuration with --selftest, K4 and K5
+    as operator nodes beside K1's (held against the JAX fused forward in
+    tests/test_torch_port_fused.py)."""
     opts = EXPORT_OPTS + ['model.backbone_impl=fused',
                           'model.fused_attention=True']
     out = str(tmp_path / 'f.pt2')

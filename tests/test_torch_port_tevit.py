@@ -36,8 +36,12 @@ import contextlib
 import functools
 import io
 import json
+import os
 import os.path as osp
+import pickle
 import shutil
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -60,6 +64,7 @@ from mcgaze_tpu_torch.utils.convert import jax_query_variables_to_state_dict
 from tests.test_torch_port_model import random_variables, to_numpy_tree
 from tests.test_torch_port_query_train import (as_jax, as_torch, gt_batch)
 from tests.test_torch_port_train import STEP_OC, _assert_deltas_match
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 TEVIT_CFG = osp.join(ROOT, 'configs/tevit/tevit_msgshift_youtubevis.py')
@@ -202,14 +207,16 @@ def jax_step(seed):
             {'params': to_numpy_tree(jstate.params)}))
 
 
-def port_step(seed, relu_mask=None, grads=True):
+def port_step(seed, relu_mask=None, grads=True, weights=None):
     """The port's side of the same step (mkldnn off): its CROSSING unit's
     output in the first forward, gradients (without grads=False), logs
     and parameters. With
     relu_mask (JAX's CROSSING output > 0), the port's CROSSING output is
     set to 0 where JAX's ReLU passes nothing, so its ReLU there passes
-    what JAX's passes."""
-    _, weights = seeded_weights(seed)
+    what JAX's passes. `weights`: seed's variables when the caller has
+    them (seeded_weights)."""
+    if weights is None:
+        _, weights = seeded_weights(seed)
     cfg = pq.QueryDetectorConfig(**TINY)
     model = port_model(weights)
     seen = []
@@ -237,6 +244,32 @@ def port_step(seed, relu_mask=None, grads=True):
         pgrads=pgrads, before=before,
         pafter={k: v.detach().clone()
                 for k, v in model.state_dict().items()})
+
+
+def port_step_default_threads(seed, tmp_path):
+    """port_step(seed, grads=False) in a fresh interpreter, where torch
+    runs on its default threads, on seed's weights handed over in a file.
+    Returns its CROSSING output and the parameters before and after."""
+    weights = osp.join(tmp_path, 'weights.pkl')
+    out = osp.join(tmp_path, 'port_step.pt')
+    with open(weights, 'wb') as f:
+        pickle.dump(seeded_weights(seed)[1], f)
+    code = ('import pickle, sys, torch\n'
+            'from tests.test_torch_port_tevit import port_step\n'
+            'weights = pickle.load(open(sys.argv[2], "rb"))\n'
+            'r = port_step(int(sys.argv[1]), grads=False, weights=weights)\n'
+            'torch.save({k: r[k] for k in ("port_pre", "before", "pafter")},'
+            ' sys.argv[3])\n')
+    env = {k: v for k, v in os.environ.items()
+           if k not in ('OMP_NUM_THREADS', 'MKL_NUM_THREADS')}
+    env['PYTHONPATH'] = ROOT
+    proc = subprocess.run([sys.executable, '-c', code, str(seed), weights,
+                           out], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=900)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    result = torch.load(out)
+    shutil.rmtree(tmp_path)
+    return result
 
 
 @pytest.fixture(scope='module')
@@ -278,13 +311,17 @@ def test_step_params_match_jax(step):
                            step['before']['backbone.msg_tokens'])
 
 
-def test_seed51_step_crosses_one_relu_without_the_jax_mask():
+def test_seed51_step_crosses_one_relu_without_the_jax_mask(tmp_path):
     """On seed 51 the port's f32 forward puts one element of the CROSSING
     unit on the other side of 0 from JAX's (and from float64), and no
     other element of it; left to its own ReLU there, the port's step puts
     backbone.layers.1.1.0.ffn.layers.4.weight's update more than 1e-3 of
-    its largest change from JAX's."""
-    ref, ours = jax_step(51), port_step(51, grads=False)
+    its largest change from JAX's. That rounding is the one torch's
+    default threads give (one thread puts the element on JAX's side, and
+    this module runs torch on one thread), so the port's step runs in a
+    fresh interpreter, on torch's default threads."""
+    ref = jax_step(51)
+    ours = port_step_default_threads(51, tmp_path)
     jax_pre, port_pre = ref['jax_pre'], ours['port_pre']
     flips = ((port_pre > 0) != (jax_pre > 0)).nonzero().tolist()
     assert flips == [list(CROSSING_ELEMENT)]

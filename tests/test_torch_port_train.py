@@ -50,6 +50,7 @@ from mcgaze_tpu_torch.train import loop as ploop
 from mcgaze_tpu_torch.utils.convert import jax_variables_to_state_dict
 from tests.test_torch_port_model import random_variables, to_numpy_tree
 from tests.test_train_step import make_batch
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 SMALL = dict(backbone_depth=26, num_stages=2, ffn_channels=256,

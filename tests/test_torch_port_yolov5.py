@@ -17,6 +17,7 @@ import torch
 import jax.numpy as jnp
 
 from mcgaze_tpu_torch.models import yolov5 as py
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401
 
 CFG = py.YoloConfig(depth_multiple=0.33, width_multiple=0.25, img_size=128)
 BN_LEAVES = {'bn.weight': ('params', 'scale'), 'bn.bias': ('params', 'bias'),
