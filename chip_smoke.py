@@ -151,6 +151,18 @@ Phases, each printing one JSON line (any failure exits non-zero):
           the two instblink phases above with the TeViT config
   ddp     the gaze train CLI and tools.test under an NCCL group of one
           process against the same runs without it (phase_ddp)
+  tools   the port's measurement tools through their main(argv), full
+          width, few iterations: collect_env (the card, the built
+          kernels), benchmark (synthetic; --e2e on the fused
+          configuration: K1, K4, K5), dedup_bench (and fwd_dedup against
+          fwd at TOL_E2E, f32, TF32 off), backbone_bench (K5 in each fused
+          subset's stages only), step_breakdown (gaze and InstBlink),
+          get_flops (plain and fused forwards within 1%, the train step;
+          a launch outside a counted operator fails), train_bench (step
+          and --e2e), serve_bench (engine), the train CLI's --profile-dir
+          (a trace naming K1 and K3) and analyze_logs; each tool's launch
+          counts equal to what its arguments make it launch, every number
+          it prints finite; the readings beside the card (phase_tools)
   learning  the learning proofs at the JAX tools' counts, f32, TF32 off:
           tools.analysis_tools.crop_sensitivity (gaze: 1500 steps on 20
           fabricated videos, scored with the fixed and the reference crop)
@@ -295,80 +307,6 @@ def make_rois(rng, n, r, img_hw):
     return rois
 
 
-def _axis(start, end, size, out, s):
-    """Sample geometry on one axis, as the kernel computes it:
-    (lo, hi, valid) of shape (..., out*s)."""
-    pos = (np.arange(out, dtype=np.float32)[:, None]
-           + (np.arange(s, dtype=np.float32) + 0.5) / s).reshape(-1)
-    bin_ = (end - start) / np.float32(out)
-    v = start[..., None] + pos * bin_[..., None]
-    valid = (v >= -1.0) & (v <= size)
-    lo = np.minimum(np.floor(np.maximum(v, 0.0)), size - 1).astype(np.int64)
-    hi = np.minimum(lo + 1, size - 1)
-    return lo, hi, valid
-
-
-def roi_touch(rois, frame_idx, sizes, strides, out=7, s=2, finest=56.0):
-    """(pyramid cells the routed samples touch, valid samples) of the
-    RoIAlign on these inputs, counted as the kernels route and sample."""
-    n, r = rois.shape[:2]
-    fidx = np.arange(n) if frame_idx is None else frame_idx
-    area = np.maximum((rois[..., 2] - rois[..., 0]) *
-                      (rois[..., 3] - rois[..., 1]), 0.0)
-    v = np.sqrt(area) / np.float32(finest) + np.float32(1e-6)
-    lvl = sum((v >= 2.0 ** k).astype(np.int64) for k in range(1, len(sizes)))
-    cells = 0
-    valid_samples = 0
-    for li, ((h, w), stride) in enumerate(zip(sizes, strides)):
-        m = lvl == li
-        if not m.any():
-            continue
-        b = rois[m].astype(np.float32)
-        frames = np.broadcast_to(fidx[:, None], (n, r))[m]
-        ylo, yhi, yv = _axis(b[:, 1] / stride - 0.5, b[:, 3] / stride - 0.5,
-                             h, out, s)
-        xlo, xhi, xv = _axis(b[:, 0] / stride - 0.5, b[:, 2] / stride - 0.5,
-                             w, out, s)
-        valid_samples += int((yv.sum(1) * xv.sum(1)).sum())
-        mask = np.zeros((int(fidx.max()) + 1, h, w), bool)
-        for yy in (ylo, yhi):
-            for xx in (xlo, xhi):
-                ok = yv[:, :, None] & xv[:, None, :]
-                f3 = np.broadcast_to(frames[:, None, None], ok.shape)
-                mask[f3[ok], np.broadcast_to(yy[:, :, None], ok.shape)[ok],
-                     np.broadcast_to(xx[:, None, :], ok.shape)[ok]] = True
-        cells += int(mask.sum())
-    return cells, valid_samples
-
-
-def roi_work(rois, frame_idx, sizes, strides, c, itemsize, out=7, s=2,
-             finest=56.0):
-    """(bytes, flops) the RoIAlign forward needs on these inputs: each
-    routed pyramid cell read once, the output written once, the boxes and
-    map read once; 8 flops per channel per valid (sample, corner)
-    weight-multiply-add."""
-    n, r = rois.shape[:2]
-    cells, valid_samples = roi_touch(rois, frame_idx, sizes, strides, out,
-                                     s, finest)
-    nbytes = (cells * c * itemsize + n * r * out * out * c * itemsize
-              + rois.nbytes + (0 if frame_idx is None else frame_idx.nbytes))
-    return nbytes, valid_samples * 4 * 2 * c
-
-
-def roi_bwd_work(rois, frame_idx, sizes, strides, c, itemsize, frames,
-                 out=7, s=2, finest=56.0):
-    """(bytes, flops) of its transpose: the dense gradient (every cell of
-    `frames` pyramids) written once in its dtype, g, the boxes and the map
-    read once; the same 8 flops per channel per valid (sample, corner)."""
-    n, r = rois.shape[:2]
-    _, valid_samples = roi_touch(rois, frame_idx, sizes, strides, out, s,
-                                 finest)
-    dense = frames * sum(h * w for h, w in sizes) * c * itemsize
-    nbytes = (dense + n * r * out * out * c * itemsize + rois.nbytes
-              + (0 if frame_idx is None else frame_idx.nbytes))
-    return nbytes, valid_samples * 4 * 2 * c
-
-
 def bound(nbytes, flops, peak=None):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / (peak or F32_FLOPS) * 1e3
@@ -447,6 +385,7 @@ def phase_kernel(device, timer, cases=None, phase='kernel', seed=0):
     case (default: default_k1_cases)."""
     from mcgaze_tpu_torch.ops import roi_align_cuda
     from mcgaze_tpu_torch.ops.roi_align import roi_align_fpn_mm
+    from mcgaze_tpu_torch.tools.kernel_bounds import roi_work
 
     rng = np.random.RandomState(seed)
     if cases is None:
@@ -504,6 +443,7 @@ def phase_kernel_bwd(device, timer, cases=None, phase='kernel_bwd',
     1.1x its output."""
     from mcgaze_tpu_torch.ops import roi_align_cuda
     from mcgaze_tpu_torch.ops.roi_align import roi_align_fpn_mm
+    from mcgaze_tpu_torch.tools.kernel_bounds import roi_bwd_work
 
     rng = np.random.RandomState(seed)
     sel = gaze_sel()
@@ -901,6 +841,7 @@ def k1_launch_bounds(step):
     recorded on the way in (the wrapper is looked up at call time), the
     launch run as it is."""
     from mcgaze_tpu_torch.ops import roi_align_cuda
+    from mcgaze_tpu_torch.tools.kernel_bounds import roi_work
     launch = roi_align_cuda.launch_roi_align_fpn
     bounds = []
 
@@ -1766,26 +1707,6 @@ SERVE_DECODE = 'npy stand-in for decode_image_bytes (no OpenCV on this machine)'
 TOL_BF16 = 2e-2   # the slice phase's bf16 tolerance, on O(1) outputs
 
 
-def npy_bytes(frame: np.ndarray) -> bytes:
-    buf = io.BytesIO()
-    np.save(buf, frame)
-    return buf.getvalue()
-
-
-def npy_decode_image(data: bytes) -> np.ndarray:
-    """serving.decode_image_bytes for .npy request bodies: the card's
-    machine has no OpenCV to decode JPEG/PNG. Raises ValueError on a body
-    that is not an HxWx3 u8 array, as the cv2 decoder does."""
-    try:
-        img = np.load(io.BytesIO(data), allow_pickle=False)
-    except (ValueError, OSError, EOFError) as e:
-        raise ValueError('request body is not a decodable image') from e
-    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
-        raise ValueError(f'request body holds a {img.dtype} {img.shape} '
-                         'array, not an RGB image')
-    return img
-
-
 def post(port, path, body=None, ctype=None, method='POST'):
     """(status, parsed JSON, seconds) of one localhost request."""
     import urllib.error
@@ -1919,7 +1840,8 @@ def phase_serve(device, checkpoint, opts=(), dtype='bfloat16',
     whose RoIAlign is the plain version (roi_impl='mm'), and one 8-clip
     bucket through the batcher against the same bucket through the plain
     version's batcher, each within TOL_E2E. Request images are .npy
-    bytes decoded by npy_decode_image."""
+    bytes decoded by the stand-in for decode_image_bytes
+    (tools/analysis_tools/npy_frames.py::npy_request_images)."""
     import base64
     import shutil
 
@@ -1927,6 +1849,8 @@ def phase_serve(device, checkpoint, opts=(), dtype='bfloat16',
     from mcgaze_tpu_torch.evaluation.driver import (VideoGazeEvaluator,
                                                     clip_slices)
     from mcgaze_tpu_torch.ops import roi_align_cuda
+    from mcgaze_tpu_torch.tools.analysis_tools import npy_frames
+    from mcgaze_tpu_torch.tools.analysis_tools.npy_frames import npy_bytes
     from mcgaze_tpu_torch.tools.deployment import (package_model, serve,
                                                    test_server)
 
@@ -1942,8 +1866,8 @@ def phase_serve(device, checkpoint, opts=(), dtype='bfloat16',
              '--device', str(device), '--cfg-options',
              'eval_cfg.crop_ratio=None', *opts, *extra]))
 
-    decode = serving.decode_image_bytes
-    serving.decode_image_bytes = npy_decode_image
+    request_images = npy_frames.npy_request_images()
+    request_images.__enter__()
     proc = processor(dtype)
     h, w = proc.eval_cfg.canvas
     rng = np.random.RandomState(11)
@@ -2091,7 +2015,7 @@ def phase_serve(device, checkpoint, opts=(), dtype='bfloat16',
         for p in (proc, proc32, proc_mm):
             if p is not None:
                 p.close()
-        serving.decode_image_bytes = decode
+        request_images.__exit__(None, None, None)
         shutil.rmtree(root, ignore_errors=True)
     del proc, proc32, proc_mm
     torch.cuda.empty_cache()
@@ -2985,6 +2909,298 @@ def phase_ddp(device, steps=2, opts=(), lengths=(60, 33)):
 
 # the JAX tools' counts (tools/analysis_tools/*.py), as the proofs' own
 # defaults give them
+# ------------------------------------------------------------- the tools
+
+TOOLS_BUDGET_S = 150.0     # the phase's share of the script's time limit
+
+
+def json_lines(text):
+    """Every stdout line that is a JSON object, parsed."""
+    return [json.loads(ln) for ln in text.splitlines() if ln.startswith('{')]
+
+
+def all_finite(obj):
+    """Every number in a parsed line is finite."""
+    if isinstance(obj, dict):
+        return all(all_finite(v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return all(all_finite(v) for v in obj)
+    if isinstance(obj, (int, float)) and not isinstance(obj, bool):
+        return bool(np.isfinite(obj))
+    return True
+
+
+def numbers_in(text):
+    """The numbers of a tool's text lines, as floats."""
+    import re
+    return [float(x) for x in re.findall(r'-?\d+\.\d+|-?\d+', text)]
+
+
+def phase_tools(device, opts=(), image=224, clips=32, query_hw=(384, 640),
+                frames=24, rehearse=False):
+    """The port's measurement tools in this process, each through its
+    main(argv) on the card, at full width (the shipped gaze360 config, its
+    fused configuration, InstBlink R-50; seeded random weights) and few
+    iterations: collect_env; benchmark synthetic (bf16, `clips` clips a
+    forward) and --e2e on two fabricated .npy videos of `frames` frames
+    with the fused configuration (K1, K4, K5); dedup_bench at 8 and 32
+    clips; backbone_bench (plain and the fused subsets, `clips` x 7
+    frames); step_breakdown, gaze and InstBlink (`query_hw`); get_flops,
+    plain and fused eval, plain --train; train_bench, the f32 step and
+    --e2e over fabricated .npy frames; serve_bench engine mode (bf16,
+    concurrency 1 and 4); the train CLI with --profile-dir for 9 steps,
+    then analyze_logs on its log. For each, the launch counters reset
+    before and read after, equal to what its arguments make it launch;
+    every number it prints finite. Besides: fwd_dedup against fwd on
+    dedup_bench's inputs at TOL_E2E (f32, TF32 off); each fused subset
+    launching K5 in its stages only; the fused forward's flops within 1%
+    of the plain one's; a trace that names K1 and K3. `opts` and the
+    sizes shrink it for a CPU rehearsal. Returns the launches by tool."""
+    import contextlib
+    import shutil
+
+    from mcgaze_tpu_torch.evaluation.driver import clip_slices
+    from mcgaze_tpu_torch.evaluation.forward import make_eval_forward
+    from mcgaze_tpu_torch.models.mcgaze import ModelConfig
+    from mcgaze_tpu_torch.tools import kernel_bounds
+    from mcgaze_tpu_torch.tools import train as train_cli
+    from mcgaze_tpu_torch.tools.analysis_tools import (
+        analyze_logs, backbone_bench, benchmark, dedup_bench, get_flops,
+        serve_bench, step_breakdown, train_bench)
+    from mcgaze_tpu_torch.utils import collect_env
+    from mcgaze_tpu_torch.utils.cfg_options import apply_overrides
+    from mcgaze_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    dev = str(device)
+    cfg_opts = ['--cfg-options', *opts] if opts else []
+    cfg = apply_overrides(load_config(TRAIN_CONFIG), list(opts) or None)
+    stages = cfg.model.num_stages
+    k5_forward = sum(kernel_bounds.k5_launches(ch)
+                     for ch in kernel_bounds.chains(cfg.model.backbone_depth))
+    root = os.path.join(ROOT, 'work_dirs', 'chip_smoke_tools')
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    runs, seconds, readings = {}, {}, {}
+
+    def run(name, main, argv, expected):
+        """main(argv) with the counters from 0, checked against `expected`
+        (None: the caller checks them); its return and stdout."""
+        buf = io.StringIO()
+        reset_counters()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                ret = main(argv)
+            if device.type == 'cuda':
+                torch.cuda.synchronize()
+        except BaseException:
+            print(buf.getvalue()[-4000:], file=sys.stderr)
+            raise
+        seconds[name] = time.perf_counter() - t0
+        got = fused_counters()
+        if expected is not None:
+            want = dict(dict(k1=0, k3=0, k4=0, k5=0), **expected)
+            check(got == want, f'tools {name}: launched {got}, its '
+                  f'arguments make it launch {want}')
+        runs[name] = got
+        text = buf.getvalue()
+        check(all(all_finite(x) for x in json_lines(text)) and
+              all(np.isfinite(numbers_in(text))),
+              f'tools {name}: a number it printed is not finite:\n'
+              f'{text[-2000:]}')
+        if device.type == 'cuda':
+            torch.cuda.empty_cache()
+        return ret, text
+
+    try:
+        # environment
+        info, _ = run('collect_env', lambda argv: collect_env.collect_env(),
+                      [], {})
+        readings['collect_env'] = {k: info[k] for k in (
+            'torch', 'torch cuda', 'cudnn', 'cv2', 'scipy', 'triton', 'nvcc',
+            'devices', 'native_loader', 'cuda_kernels')}
+        if not rehearse:
+            check(info['cuda'] == 'available' and
+                  torch.cuda.get_device_name(0) in info['devices'],
+                  f'collect_env: {info}')
+            check(info['cuda_kernels'].endswith('not built: none'),
+                  f'collect_env kernels: {info["cuda_kernels"]}')
+
+        # benchmark: synthetic, then --e2e on the fused configuration
+        iters = 3
+        ret, _ = run('benchmark', benchmark.main, [
+            TRAIN_CONFIG, '--synthetic', '--dtype', 'bfloat16', '--batch',
+            str(clips), '--iters', str(iters), '--warmup', '1', '--device',
+            dev, *cfg_opts], dict(k1=stages * (iters + 1)))
+        readings['benchmark'] = dict(clips_per_s=ret['clips_per_s'],
+                                     ms_per_forward=ret['ms'])
+        e2e_batch = 8
+        n_fwd = -(-len(clip_slices(frames, 7, 4)) // e2e_batch)
+        passes = 2 + 1                  # two timed videos and one warm
+        ret, _ = run('benchmark_e2e_fused', benchmark.main, [
+            TRAIN_CONFIG, '--e2e', '--e2e-videos', '2', '--e2e-frames',
+            str(frames), '--batch', str(e2e_batch), '--dtype', 'bfloat16',
+            '--json', os.path.join(root, 'absent.json'), '--device', dev,
+            '--cfg-options', *opts, *FUSED_OPTS],
+            dict(k1=stages * n_fwd * passes, k4=stages * n_fwd * passes,
+                 k5=k5_forward * n_fwd * passes))
+        readings['benchmark_e2e_fused'] = dict(
+            frames_per_s=ret['frames_per_s'], decoder=ret['decoder'],
+            phases_s=ret['phases'])
+
+        # dedup_bench, and fwd_dedup against fwd on its inputs
+        counts = (8, clips)
+        rows, _ = run('dedup_bench', dedup_bench.main, [
+            '--clips', *map(str, counts), '--image', str(image), '--iters',
+            str(iters), '--warmup', '1', '--device', dev],
+            dict(k1=4 * (iters + 1) * 2 * len(counts)))
+        readings['dedup_bench'] = [{k: r[k] for k in (
+            'clips', 'ms_plain', 'ms_dedup', 'speedup')} for r in rows]
+        flags = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+        try:
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+            _, fwd, fwd_dedup = make_eval_forward(
+                ModelConfig(dtype='float32'), device=device)
+            fr, sel, whwh_u, imgs, whwh = dedup_bench.dedup_inputs(
+                np.random.RandomState(0), 8, image, 4, 7, device)
+            dedup_err = e2e_err(fwd_dedup(fr, sel, whwh_u, 7),
+                                fwd(imgs, whwh, 7))
+            del fwd, fwd_dedup, fr, imgs
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = flags
+        check(dedup_err <= TOL_E2E, f'dedup_bench: fwd_dedup vs fwd '
+              f'{dedup_err} > {TOL_E2E} (f32, TF32 off)')
+
+        # backbone_bench: K5 in each subset's stages only
+        chains = kernel_bounds.chains(50)
+
+        def subset_k5(spec):
+            stages_in = range(4) if spec is True else (spec or ())
+            return sum(kernel_bounds.k5_launches(chains[s])
+                       for s in stages_in)
+
+        calls = iters + 1
+        rows, _ = run('backbone_bench', backbone_bench.main, [
+            '--batch', str(clips * 7), '--image', str(image), '--iters',
+            str(iters), '--warmup', '1', '--device', dev],
+            dict(k5=calls * sum(subset_k5(v)
+                                for v in backbone_bench.VARIANTS.values())))
+        for r in rows:
+            want = calls * subset_k5(backbone_bench.VARIANTS[r['variant']])
+            check(r['k5_launches'] == want, f'backbone_bench {r["variant"]}:'
+                  f' {r["k5_launches"]} K5 launches, its stages make {want}')
+        readings['backbone_bench'] = {r['variant']: r['ms_per_step']
+                                      for r in rows}
+
+        # step_breakdown, gaze and InstBlink
+        sb_iters = 2
+        ms, _ = run('step_breakdown', step_breakdown.main, [
+            '--batch', str(clips), '--image', str(image), '--iters',
+            str(sb_iters), '--warmup', '1', '--device', dev],
+            dict(k1=(2 + 4) * (sb_iters + 1)))
+        readings['step_breakdown'] = ms
+        ms, _ = run('step_breakdown_query', step_breakdown.main, [
+            '--family', 'query', '--batch', '4', '--height',
+            str(query_hw[0]), '--width', str(query_hw[1]), '--iters',
+            str(sb_iters), '--warmup', '1', '--device', dev],
+            dict(k1=(2 + 4 + 6) * (sb_iters + 1)))
+        readings['step_breakdown_query'] = ms
+
+        # get_flops: plain and fused forwards, the plain train step
+        flops = {}
+        for name, argv, want in (
+                ('get_flops', [*cfg_opts], dict(k1=stages)),
+                ('get_flops_fused', ['--cfg-options', *opts, *FUSED_OPTS],
+                 dict(k1=stages, k4=stages, k5=k5_forward)),
+                ('get_flops_train', ['--train', *cfg_opts],
+                 dict(k1=stages, k3=stages))):
+            argv = [TRAIN_CONFIG, '--device', dev, *argv]
+            ca, _ = run(name, get_flops.main, argv, want)
+            flops[name] = ca['flops']
+            readings[name] = dict(flops=ca['flops'],
+                                  operator_bytes=ca['operator bytes accessed'],
+                                  operator_calls=ca['operator calls'])
+        rel = abs(flops['get_flops_fused'] - flops['get_flops']) / \
+            flops['get_flops']
+        check(rel <= 0.01, f'get_flops: fused forward {flops["get_flops_fused"]}'
+              f' flops against plain {flops["get_flops"]} ({rel:.4f} > 1%)')
+        readings['get_flops_fused']['rel_to_plain'] = rel
+
+        # train_bench: the eager step, then the input path
+        tb_iters = 2
+        rows, _ = run('train_bench', train_bench.main, [
+            '--batch', str(clips), '--image', str(image), '--iters',
+            str(tb_iters), '--warmup', '1', '--dtypes', 'float32',
+            '--device', dev],
+            dict(k1=4 * (tb_iters + 1), k3=4 * (tb_iters + 1)))
+        readings['train_bench'] = rows
+        e2e_iters = 6
+        rows, _ = run('train_bench_e2e', train_bench.main, [
+            '--e2e', '--videos', '2', '--frames', str(frames), '--batch',
+            '4', '--image', str(image), '--iters', str(e2e_iters),
+            '--warmup', '1', '--roofline-iters', '4', '--dtypes', 'float32',
+            '--device', dev],
+            dict(k1=4 * (e2e_iters + 1), k3=4 * (e2e_iters + 1)))
+        readings['train_bench_e2e'] = rows
+
+        # serve_bench: warmup runs 4 buckets and 4 video chunks
+        levels = (1, 4)
+        out, _ = run('serve_bench', serve_bench.main, [
+            '--image', str(image), '--dtype', 'bfloat16', '--requests', '8',
+            '--concurrency', *map(str, levels), '--max-batch', '8',
+            '--device', dev], None)
+        # each level: one lone request, then the batcher's launches
+        forwards = 4 + 4 + sum(1 + r['launches'] for r in out['results'])
+        check(runs['serve_bench'] == dict(k1=4 * forwards, k3=0, k4=0, k5=0),
+              f'serve_bench: launched {runs["serve_bench"]}, its '
+              f'{forwards} forwards make {4 * forwards} K1')
+        readings['serve_bench'] = out
+
+        # the train CLI with --profile-dir, then analyze_logs on its log
+        prof = os.path.join(root, 'prof')
+        work = os.path.join(root, 'train')
+        steps = 9
+        ret, text = run('train_profile_dir', train_cli.main, [
+            TRAIN_CONFIG, '--synthetic', '--device', dev, '--max-iters',
+            str(steps), '--work-dir', work, '--profile-dir', prof,
+            *cfg_opts], dict(k1=stages * steps, k3=stages * steps))
+        check(f'profiler trace -> {prof}' in text, 'train --profile-dir: '
+              'no trace line')
+        traces = os.listdir(prof)
+        check(len(traces) == 1, f'train --profile-dir: {traces}')
+        with open(os.path.join(prof, traces[0])) as f:
+            trace_text = f.read()
+        names = ('roi_align_fpn_kernel', 'roi_align_fpn_bwd_kernel')
+        if not rehearse:
+            check(all(n in trace_text for n in names),
+                  f'train --profile-dir: the trace names '
+                  f'{[n for n in names if n in trace_text]} of {names}')
+        readings['train_profile_dir'] = dict(
+            trace_mb=len(trace_text) / 2 ** 20,
+            names={n: trace_text.count(n) for n in names},
+            ms_per_step=float(np.median([h['time'] for h in
+                                         ret['history'][1:]])) * 1e3)
+        del trace_text
+        _, text = run('analyze_logs', analyze_logs.main, [
+            'cal_train_time', os.path.join(work, 'train_log.jsonl')], {})
+        check('avg iter time' in text, f'analyze_logs: {text}')
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    phase_s = time.perf_counter() - t_phase
+    launches = {k: sum(r[k] for r in runs.values())
+                for k in ('k1', 'k3', 'k4', 'k5')}
+    emit('tools', readings=readings, launches_by_tool=runs,
+         launches=launches, seconds_by_tool=seconds, seconds=phase_s,
+         budget_s=TOOLS_BUDGET_S,
+         dedup_err_f32=dedup_err, card=nvidia_smi())
+    return launches
+
+
 GAZE_PROOF = ('--iters', '1500', '--videos', '20', '--frames', '24')
 INSTBLINK_PROOF = ('--iters', '600', '--train-videos', '20',
                    '--test-videos', '6')
@@ -3238,6 +3454,7 @@ def main():
     tv_eval_launches = phase_instblink_eval(
         device, tv_ckpt, config=TEVIT_CONFIG, phase='tevit_eval')
     ddp_launches = phase_ddp(device)
+    tools_launches = phase_tools(device)
     learning_launches = phase_learning(device)
 
     # each kernel beside the case of the path that runs it: K1 at the eval
@@ -3293,6 +3510,7 @@ def main():
                   tevit_eval=tv_eval_launches,
                   ddp_train=ddp_launches['train']['k1'],
                   ddp_test=ddp_launches['test'],
+                  tools=tools_launches['k1'],
                   learning=learning_launches['k1']), k1,
              tevit_cases(tevit_k1)),
         line('roi_align_fpn_bwd',
@@ -3302,6 +3520,7 @@ def main():
                   instblink_train=ib_train_launches['k3'],
                   tevit_train=tv_train_launches['k3'],
                   ddp_train=ddp_launches['train']['k3'],
+                  tools=tools_launches['k3'],
                   learning=learning_launches['k3']), k3,
              tevit_cases(tevit_k3)),
         line('fused_stqi_attention',
@@ -3309,14 +3528,16 @@ def main():
              'mcgaze_tpu/ops/stqi_attention.py:110',
              dict(eval_fused=fused_launches['k4'],
                   export_fused=export_launches['fused']['k4'],
-                  export_fused_f32=export_launches['fused_f32']['k4']), k4),
+                  export_fused_f32=export_launches['fused_f32']['k4'],
+                  tools=tools_launches['k4']), k4),
         line('fused_bottleneck_chain',
              'mcgaze_tpu_torch/csrc/fused_bottleneck.cu',
              'mcgaze_tpu/ops/fused_bottleneck.py:125',
              dict(eval_fused=fused_launches['k5'],
                   train_fused=train_fused_launches['k5'],
                   export_fused=export_launches['fused']['k5'],
-                  export_fused_f32=export_launches['fused_f32']['k5']),
+                  export_fused_f32=export_launches['fused_f32']['k5'],
+                  tools=tools_launches['k5']),
              k5)]}),
           flush=True)
     print(smi, flush=True)

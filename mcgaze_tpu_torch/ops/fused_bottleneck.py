@@ -31,7 +31,10 @@ mcgaze_tpu/ops/fused_bottleneck.py.
     `launch_fused_bottleneck_chain`, its CPU kernel `chain_reference`, its
     fake kernel gives the output's shape. `fused_bottleneck_chain` goes
     through it only while a program is being traced, and it has no
-    gradient: eager training keeps the Function.
+    gradient: eager training keeps the Function. Inside
+    ops/routing.py::through_operators() an eager call takes the Function on
+    any device with its forward reached through the operator, so a
+    dispatch mode sees it (utils/profiling.py::cost_analysis).
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from . import _native
+from . import _native, routing
 
 launch_count = 0
 
@@ -138,7 +141,7 @@ def fused_bottleneck_chain(x: torch.Tensor, weights, h: int, w: int
     if len(devices) != 1:
         raise ValueError(f'fused_bottleneck_chain: inputs on several devices '
                          f'{sorted(map(str, devices))}')
-    if x.device.type == 'cpu':
+    if x.device.type == 'cpu' and not routing.active():
         return chain_reference(x, weights, h, w)
     return FusedBottleneckChainFunction.apply(x, h, w, *weights)
 
@@ -169,13 +172,18 @@ def _op_fake(x, weights, h, w):
 
 
 class FusedBottleneckChainFunction(torch.autograd.Function):
-    """Forward: the kernel. Backward: recompute `chain_reference` under
-    autograd and return the gradients of x and of every folded weight."""
+    """Forward: the kernel (inside routing.through_operators(), through the
+    operator: the plain version on the CPU). Backward: recompute
+    `chain_reference` under autograd and return the gradients of x and of
+    every folded weight."""
 
     @staticmethod
     def forward(ctx, x, h, w, *weights):
         ctx.save_for_backward(x, *weights)
         ctx.hw = (h, w)
+        if routing.active():
+            return torch.ops.mcgaze.fused_bottleneck_chain(x, list(weights),
+                                                           h, w)
         return launch_fused_bottleneck_chain(x, weights, h, w)
 
     @staticmethod

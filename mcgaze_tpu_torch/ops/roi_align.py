@@ -53,6 +53,24 @@ def _axis_weights(coord: torch.Tensor, size: int,
                      size).mean(3)
 
 
+def _level_weights(rois_f, stride, h_l, w_l, out_size, s, dtype):
+    """The separable bilinear rows of every RoI on one level, rounded to
+    the feature dtype: (Ay (N, R, out, H), Ax (N, R, out, W))."""
+    pos = (torch.arange(out_size, dtype=torch.float32,
+                        device=rois_f.device)[:, None]
+           + (torch.arange(s, dtype=torch.float32,
+                           device=rois_f.device)[None, :] + 0.5) / s
+           ).reshape(-1)
+    x1 = rois_f[..., 0] / stride - 0.5
+    y1 = rois_f[..., 1] / stride - 0.5
+    x2 = rois_f[..., 2] / stride - 0.5
+    y2 = rois_f[..., 3] / stride - 0.5
+    ys = y1[..., None] + pos * ((y2 - y1) / out_size)[..., None]
+    xs = x1[..., None] + pos * ((x2 - x1) / out_size)[..., None]
+    return (_axis_weights(ys, h_l, s).to(dtype),
+            _axis_weights(xs, w_l, s).to(dtype))
+
+
 def roi_align_fpn_mm(feats, rois: torch.Tensor,
                      frame_idx: torch.Tensor | None = None,
                      out_size: int = 7, sampling_ratio: int = 2,
@@ -66,26 +84,14 @@ def roi_align_fpn_mm(feats, rois: torch.Tensor,
     as in the JAX formulation; this is the plain version, not a fast one.
     """
     dtype = feats[0].dtype
-    device = rois.device
     lvl = roi_levels(rois, len(feats), finest_scale)
-    s = sampling_ratio
-    pos = (torch.arange(out_size, dtype=torch.float32, device=device)[:, None]
-           + (torch.arange(s, dtype=torch.float32, device=device)[None, :]
-              + 0.5) / s).reshape(-1)
-
     rois_f = rois.to(torch.float32)
     out = None
     for li, stride in enumerate(strides):
         f = feats[li] if frame_idx is None else feats[li][frame_idx.long()]
         h_l, w_l = f.shape[1:3]
-        x1 = rois_f[..., 0] / stride - 0.5
-        y1 = rois_f[..., 1] / stride - 0.5
-        x2 = rois_f[..., 2] / stride - 0.5
-        y2 = rois_f[..., 3] / stride - 0.5
-        ys = y1[..., None] + pos * ((y2 - y1) / out_size)[..., None]
-        xs = x1[..., None] + pos * ((x2 - x1) / out_size)[..., None]
-        ay = _axis_weights(ys, h_l, s).to(dtype)           # (N, R, 7, H)
-        ax = _axis_weights(xs, w_l, s).to(dtype)           # (N, R, 7, W)
+        ay, ax = _level_weights(rois_f, stride, h_l, w_l, out_size,
+                                sampling_ratio, dtype)
         tmp = torch.einsum('nrih,nhwc->nriwc', ay.float(),
                            f.float()).to(dtype)
         out_l = torch.einsum('nriwc,nrjw->nrijc', tmp.float(), ax.float())
@@ -93,3 +99,33 @@ def roi_align_fpn_mm(feats, rois: torch.Tensor,
         out = out_l if out is None else torch.where(routed, out_l, out)
         del tmp, out_l
     return out.to(dtype)
+
+
+def roi_align_fpn_mm_bwd(g: torch.Tensor, rois: torch.Tensor,
+                         frame_idx: torch.Tensor | None, level_shapes,
+                         out_size: int = 7, sampling_ratio: int = 2,
+                         strides=(4, 8, 16, 32),
+                         finest_scale: float = 56.0) -> tuple:
+    """The transpose of roi_align_fpn_mm in the features, written out (a
+    custom operator's kernel runs without autograd): g (N, R, out, out, C)
+    -> one gradient (U, H_l, W_l, C) per level of `level_shapes`, summed in
+    f32 and returned in g's dtype. The plain version of the backward
+    kernel (roi_align_cuda.launch_roi_align_fpn_bwd)."""
+    dtype = g.dtype
+    lvl = roi_levels(rois, len(level_shapes), finest_scale)
+    rois_f = rois.to(torch.float32)
+    grads = []
+    for li, (shape, stride) in enumerate(zip(level_shapes, strides)):
+        u, h_l, w_l, c = (int(d) for d in shape)
+        ay, ax = _level_weights(rois_f, stride, h_l, w_l, out_size,
+                                sampling_ratio, dtype)
+        gl = g.float() * (lvl == li)[..., None, None, None]
+        tmp = torch.einsum('nrijc,nrjw->nriwc', gl, ax.float())
+        per_slot = torch.einsum('nrih,nriwc->nhwc', ay.float(), tmp)
+        if frame_idx is None:
+            grad = per_slot
+        else:
+            grad = per_slot.new_zeros((u, h_l, w_l, c)).index_add_(
+                0, frame_idx.long(), per_slot)
+        grads.append(grad.to(dtype))
+    return tuple(grads)

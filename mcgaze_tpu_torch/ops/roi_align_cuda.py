@@ -24,7 +24,12 @@ plain version, and its fake kernel gives the output's shape.
 traced, and the operator has no gradient: with the backward kernel
 registered as its gradient, an eager call whose features need one cost
 several times the autograd Function's host time (tools/k1_host_us.py,
-'roi_align_fpn, grad'; PERF.md).
+'roi_align_fpn, grad'; PERF.md). The backward kernel is the operator
+`torch.ops.mcgaze.roi_align_fpn_bwd` (CPU kernel: ops/roi_align.py::
+roi_align_fpn_mm_bwd). Inside ops/routing.py::through_operators() an eager
+call takes `RoIAlignFPNFunction` on any device with both kernels reached
+through their operators, so a dispatch mode sees each launch
+(utils/profiling.py::cost_analysis).
 """
 from __future__ import annotations
 
@@ -34,8 +39,8 @@ import struct
 import torch
 from torch.autograd.function import once_differentiable
 
-from . import _native
-from .roi_align import roi_align_fpn_mm
+from . import _native, routing
+from .roi_align import roi_align_fpn_mm, roi_align_fpn_mm_bwd
 
 launch_count = 0
 bwd_launch_count = 0
@@ -63,7 +68,7 @@ def roi_align_fpn(feats, rois: torch.Tensor,
     if len(devices) != 1:
         raise ValueError(f'roi_align_fpn: inputs on several devices '
                          f'{sorted(map(str, devices))}')
-    if next(iter(devices)).type == 'cpu':
+    if next(iter(devices)).type == 'cpu' and not routing.active():
         return roi_align_fpn_mm(feats, rois, frame_idx, out_size,
                                 sampling_ratio, strides, finest_scale)
     return RoIAlignFPNFunction.apply(
@@ -102,14 +107,59 @@ def _op_fake(feats, rois, frame_idx, out_size, sampling_ratio, strides,
                                out_size, feats[0].shape[-1]))
 
 
+def _bwd_op_cpu(g, rois, frame_idx, level_shapes, out_size, sampling_ratio,
+                strides, finest_scale):
+    return list(roi_align_fpn_mm_bwd(
+        g, rois, frame_idx, _shapes(level_shapes), out_size, sampling_ratio,
+        strides, finest_scale))
+
+
+def _shapes(flat) -> list:
+    """The operator's flat level shapes -> L (U, H, W, C) tuples."""
+    return [tuple(flat[i:i + 4]) for i in range(0, len(flat), 4)]
+
+
+roi_align_fpn_bwd_op = torch.library.custom_op(
+    'mcgaze::roi_align_fpn_bwd', _bwd_op_cpu, mutates_args=(),
+    device_types='cpu',
+    schema='(Tensor g, Tensor rois, Tensor? frame_idx, int[] level_shapes, '
+           'int out_size, int sampling_ratio, int[] strides, '
+           'float finest_scale) -> Tensor[]')
+
+
+@roi_align_fpn_bwd_op.register_kernel('cuda')
+def _bwd_op_cuda(g, rois, frame_idx, level_shapes, out_size, sampling_ratio,
+                 strides, finest_scale):
+    # the kernel's gradients are views of one buffer; an operator's
+    # outputs may not alias each other
+    return [t.clone() for t in launch_roi_align_fpn_bwd(
+        g, rois, frame_idx, _shapes(level_shapes), out_size, sampling_ratio,
+        strides, finest_scale)]
+
+
+@roi_align_fpn_bwd_op.register_fake
+def _bwd_op_fake(g, rois, frame_idx, level_shapes, out_size, sampling_ratio,
+                 strides, finest_scale):
+    return [g.new_empty(s) for s in _shapes(level_shapes)]
+
+
 class RoIAlignFPNFunction(torch.autograd.Function):
     """Forward: the K1 kernel. Backward: the K3 kernel, the feature
     gradient in the features' dtype (the cotangent is cast to it first, as
-    the JAX _diff_bwd does); no gradient for rois or frame_idx."""
+    the JAX _diff_bwd does); no gradient for rois or frame_idx. Inside
+    routing.through_operators() both kernels are reached through their
+    operators (the plain versions on the CPU)."""
 
     @staticmethod
     def forward(ctx, rois, frame_idx, params, *feats):
-        out = launch_roi_align_fpn(feats, rois, frame_idx, *params)
+        ctx.routed = routing.active()
+        if ctx.routed:
+            out_size, sampling_ratio, strides, finest_scale = params
+            out = torch.ops.mcgaze.roi_align_fpn(
+                list(feats), rois, frame_idx, out_size, sampling_ratio,
+                list(strides), finest_scale)
+        else:
+            out = launch_roi_align_fpn(feats, rois, frame_idx, *params)
         ctx.save_for_backward(rois, frame_idx)
         ctx.params = params
         ctx.level_shapes = [tuple(f.shape) for f in feats]
@@ -120,9 +170,16 @@ class RoIAlignFPNFunction(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         rois, frame_idx = ctx.saved_tensors
-        grads = launch_roi_align_fpn_bwd(
-            g.to(ctx.dtype).contiguous(), rois, frame_idx, ctx.level_shapes,
-            *ctx.params)
+        g = g.to(ctx.dtype).contiguous()
+        if ctx.routed:
+            out_size, sampling_ratio, strides, finest_scale = ctx.params
+            grads = torch.ops.mcgaze.roi_align_fpn_bwd(
+                g, rois, frame_idx,
+                [d for s in ctx.level_shapes for d in s], out_size,
+                sampling_ratio, list(strides), finest_scale)
+        else:
+            grads = launch_roi_align_fpn_bwd(g, rois, frame_idx,
+                                             ctx.level_shapes, *ctx.params)
         return (None, None, None, *grads)
 
 

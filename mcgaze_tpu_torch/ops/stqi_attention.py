@@ -25,7 +25,9 @@ and out projections included.
     records it as one node: its CUDA kernel is `launch_stqi_attention`, its
     CPU kernel the plain version, its fake kernel gives the output's shape.
     `fused_stqi_attention` goes through it only while a program is being
-    traced; it has no gradient, as the kernel has none.
+    traced or inside ops/routing.py::through_operators() (on any device,
+    so a dispatch mode sees it: utils/profiling.py::cost_analysis); it has
+    no gradient, as the kernel has none.
 
 Weights are in the JAX layout: wqkv (C, 3C) and wout (C, C) are applied as
 x @ w (the transposes of torch's in_proj_weight and out_proj.weight).
@@ -36,7 +38,7 @@ import ctypes
 
 import torch
 
-from . import _native
+from . import _native, routing
 
 launch_count = 0
 
@@ -98,7 +100,7 @@ def fused_stqi_attention(query, wqkv, bqkv, wout, bout, ln_scale, ln_bias,
     kernel_k4, H100 80GB HBM3 at 700 W), ~0.2 ms of a forward's four
     calls."""
     tensors = (query, wqkv, bqkv, wout, bout, ln_scale, ln_bias)
-    if torch.compiler.is_compiling():
+    if torch.compiler.is_compiling() or routing.active():
         return torch.ops.mcgaze.stqi_attention(*tensors, clip_length, heads)
     devices = {t.device for t in tensors}
     if len(devices) != 1:

@@ -1,5 +1,6 @@
 """Frame I/O without OpenCV, for the analysis tools that fabricate their
-own datasets (crop_sensitivity.py, instblink_burnin.py).
+own frames (crop_sensitivity.py, instblink_burnin.py, benchmark.py,
+train_bench.py, serve_bench.py) and for chip_smoke.py.
 
 A frame is an HxWx3 uint8 `.npy` file holding the array `cv2.imwrite`
 would take: OpenCV's BGR channel order. `read_rgb` gives back what
@@ -20,6 +21,14 @@ take these files and resize without cv2:
 On exit everything it replaced is restored, also after an exception.
 Nothing of the port's main path changes: the stand-in exists only here.
 
+`npy_request_images()` does the same for a served request's images:
+evaluation/serving.py::decode_image_bytes reads a `.npy` array's bytes
+(`npy_bytes`, an HxWx3 RGB uint8 frame) where it decodes JPEG/PNG with cv2.
+`have_cv2()` says whether OpenCV is there. The tools that fabricate frames
+write them with `write_image` (a PNG where it is, a `.npy` file where not)
+and read them under `frame_readers()` (nothing where it is, `npy_frames()`
+where not).
+
 `resize_linear` is cv2.resize(INTER_LINEAR) on uint8 frames, written out
 in numpy: half-pixel centres, no antialias, OpenCV's fixed-point weights
 (11 bits per axis) and its rounding back to uint8; an exact 2x downscale
@@ -28,14 +37,22 @@ is OpenCV's area average, as cv2 switches to it there.
 from __future__ import annotations
 
 import contextlib
+import io
 import os
 
 import numpy as np
 
 NPY_DECODE = 'npy stand-in (no OpenCV)'
+NPY_IMAGE_DECODE = 'npy stand-in for decode_image_bytes (no OpenCV)'
 
 _COEF_BITS = 11
 _COEF_SCALE = 1 << _COEF_BITS
+
+
+def have_cv2() -> bool:
+    """Whether OpenCV can be imported here."""
+    import importlib.util
+    return importlib.util.find_spec('cv2') is not None
 
 
 def write_frame(path: str, bgr: np.ndarray) -> None:
@@ -48,6 +65,24 @@ def write_frame(path: str, bgr: np.ndarray) -> None:
                          f'{bgr.shape}')
     with open(path, 'wb') as f:
         np.save(f, np.ascontiguousarray(bgr))
+
+
+def write_image(stem: str, bgr: np.ndarray) -> str:
+    """A fabricated frame (BGR uint8) as `stem`.png through cv2 where
+    OpenCV is installed, else as `stem`.npy. Returns the path."""
+    if have_cv2():
+        import cv2
+        os.makedirs(os.path.dirname(stem) or '.', exist_ok=True)
+        cv2.imwrite(stem + '.png', bgr)
+        return stem + '.png'
+    write_frame(stem + '.npy', bgr)
+    return stem + '.npy'
+
+
+def frame_readers():
+    """The context `write_image`'s frames are read under: nothing where
+    OpenCV is installed, else npy_frames()."""
+    return contextlib.nullcontext() if have_cv2() else npy_frames()
 
 
 def read_rgb(path: str) -> np.ndarray:
@@ -166,3 +201,38 @@ def npy_frames():
     finally:
         for owner, name, old in saved:
             setattr(owner, name, old)
+
+
+def npy_bytes(frame: np.ndarray) -> bytes:
+    """An HxWx3 RGB uint8 frame as the bytes of its .npy file: a request
+    image for `decode_npy_image`."""
+    buf = io.BytesIO()
+    np.save(buf, frame)
+    return buf.getvalue()
+
+
+def decode_npy_image(data: bytes) -> np.ndarray:
+    """evaluation/serving.py::decode_image_bytes for .npy request bodies.
+    Raises ValueError on a body that is not an HxWx3 uint8 array, as the
+    cv2 decoder does on one it cannot decode."""
+    try:
+        img = np.load(io.BytesIO(data), allow_pickle=False)
+    except (ValueError, OSError, EOFError) as e:
+        raise ValueError('request body is not a decodable image') from e
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f'request body holds a {img.dtype} {img.shape} '
+                         'array, not an RGB image')
+    return img
+
+
+@contextlib.contextmanager
+def npy_request_images():
+    """The serving stack's request images as .npy bytes, without cv2
+    (module docstring); restores decode_image_bytes on exit."""
+    from ...evaluation import serving
+    saved = serving.decode_image_bytes
+    serving.decode_image_bytes = decode_npy_image
+    try:
+        yield
+    finally:
+        serving.decode_image_bytes = saved

@@ -1,4 +1,6 @@
-"""Least device time of K4 (csrc/stqi_attention.cu, the port of
+"""Least device time of K1 and K3 (csrc/roi_align_fpn{,_bwd}.cu, the ports
+of mcgaze_tpu/ops/roi_align_pallas.py's forward and backward), K4
+(csrc/stqi_attention.cu, the port of
 mcgaze_tpu/ops/stqi_attention.py::fused_stqi_attention) and K5
 (csrc/fused_bottleneck.cu, the port of
 mcgaze_tpu/ops/fused_bottleneck.py::fused_bottleneck_chain) on one H100
@@ -9,7 +11,10 @@ SXM, worked out from the gaze model's shapes:
 Prints one JSON object: for eval (32 clips, 131 unique frames, bf16) and
 train (32 clips = 224 frames, f32) the bound of K4 per stage and of K5 per
 ResNet-50 stage chain, with the launches each forward makes. chip_smoke.py
-computes the bounds of the shapes it runs with the same functions.
+computes the bounds of the shapes it runs with the same functions, and
+utils/profiling.py::cost_analysis counts the kernels' operators with them.
+K1's and K3's work depends on the boxes (their level, the samples inside
+the image): `roi_work` and `roi_bwd_work` count it on given inputs.
 
 Bound = max(bytes / 3.35 TB/s, flops / peak), each input read once and
 each output written once (the chain's intermediates do not count: an
@@ -24,11 +29,88 @@ FMA without TF32, 67 TFLOP/s. No card is used.
 """
 import json
 
+import numpy as np
+
 from ..models.resnet import RESNET_SPECS
 
 HBM_BYTES_PER_S = 3.35e12
 PEAKS = dict(bfloat16=989e12, float32=67e12)
 ITEMSIZE = dict(bfloat16=2, float32=4)
+
+
+def _axis(start, end, size, out, s):
+    """Sample geometry on one axis, as the kernel computes it:
+    (lo, hi, valid) of shape (..., out*s)."""
+    pos = (np.arange(out, dtype=np.float32)[:, None]
+           + (np.arange(s, dtype=np.float32) + 0.5) / s).reshape(-1)
+    bin_ = (end - start) / np.float32(out)
+    v = start[..., None] + pos * bin_[..., None]
+    valid = (v >= -1.0) & (v <= size)
+    lo = np.minimum(np.floor(np.maximum(v, 0.0)), size - 1).astype(np.int64)
+    hi = np.minimum(lo + 1, size - 1)
+    return lo, hi, valid
+
+
+def roi_touch(rois, frame_idx, sizes, strides, out=7, s=2, finest=56.0):
+    """(pyramid cells the routed samples touch, valid samples) of the
+    RoIAlign on these inputs (numpy rois (N, R, 4), frame_idx (N,) or
+    None, sizes [(H_l, W_l)]), counted as the kernels route and sample."""
+    n, r = rois.shape[:2]
+    fidx = np.arange(n) if frame_idx is None else frame_idx
+    area = np.maximum((rois[..., 2] - rois[..., 0]) *
+                      (rois[..., 3] - rois[..., 1]), 0.0)
+    v = np.sqrt(area) / np.float32(finest) + np.float32(1e-6)
+    lvl = sum((v >= 2.0 ** k).astype(np.int64) for k in range(1, len(sizes)))
+    cells = 0
+    valid_samples = 0
+    for li, ((h, w), stride) in enumerate(zip(sizes, strides)):
+        m = lvl == li
+        if not m.any():
+            continue
+        b = rois[m].astype(np.float32)
+        frames = np.broadcast_to(fidx[:, None], (n, r))[m]
+        ylo, yhi, yv = _axis(b[:, 1] / stride - 0.5, b[:, 3] / stride - 0.5,
+                             h, out, s)
+        xlo, xhi, xv = _axis(b[:, 0] / stride - 0.5, b[:, 2] / stride - 0.5,
+                             w, out, s)
+        valid_samples += int((yv.sum(1) * xv.sum(1)).sum())
+        mask = np.zeros((int(fidx.max()) + 1, h, w), bool)
+        for yy in (ylo, yhi):
+            for xx in (xlo, xhi):
+                ok = yv[:, :, None] & xv[:, None, :]
+                f3 = np.broadcast_to(frames[:, None, None], ok.shape)
+                mask[f3[ok], np.broadcast_to(yy[:, :, None], ok.shape)[ok],
+                     np.broadcast_to(xx[:, None, :], ok.shape)[ok]] = True
+        cells += int(mask.sum())
+    return cells, valid_samples
+
+
+def roi_work(rois, frame_idx, sizes, strides, c, itemsize, out=7, s=2,
+             finest=56.0):
+    """(bytes, flops) the RoIAlign forward needs on these inputs: each
+    routed pyramid cell read once, the output written once, the boxes and
+    map read once; 8 flops per channel per valid (sample, corner)
+    weight-multiply-add."""
+    n, r = rois.shape[:2]
+    cells, valid_samples = roi_touch(rois, frame_idx, sizes, strides, out,
+                                     s, finest)
+    nbytes = (cells * c * itemsize + n * r * out * out * c * itemsize
+              + rois.nbytes + (0 if frame_idx is None else frame_idx.nbytes))
+    return nbytes, valid_samples * 4 * 2 * c
+
+
+def roi_bwd_work(rois, frame_idx, sizes, strides, c, itemsize, frames,
+                 out=7, s=2, finest=56.0):
+    """(bytes, flops) of its transpose: the dense gradient (every cell of
+    `frames` pyramids) written once in its dtype, g, the boxes and the map
+    read once; the same 8 flops per channel per valid (sample, corner)."""
+    n, r = rois.shape[:2]
+    _, valid_samples = roi_touch(rois, frame_idx, sizes, strides, out, s,
+                                 finest)
+    dense = frames * sum(h * w for h, w in sizes) * c * itemsize
+    nbytes = (dense + n * r * out * out * c * itemsize + rois.nbytes
+              + (0 if frame_idx is None else frame_idx.nbytes))
+    return nbytes, valid_samples * 4 * 2 * c
 
 
 def bound(nbytes, flops, peak):
@@ -89,11 +171,16 @@ def k5_launches(chain) -> int:
 
 
 def k5_bound(frames, chain, dtype):
-    """One stage chain over `frames` frames: x read once, the output
-    written once, the folded weights (A's in the dtype, f32 biases) read
-    once; 2 flops per multiply-add of its convolutions."""
+    """One stage chain over `frames` frames of chain['size'] squared
+    pixels (k5_pixels_bound)."""
+    return k5_pixels_bound(frames * chain['size'] ** 2, chain, dtype)
+
+
+def k5_pixels_bound(pixels, chain, dtype):
+    """One stage chain over `pixels` rows: x read once, the output written
+    once, the folded weights (A's in the dtype, f32 biases) read once; 2
+    flops per multiply-add of its convolutions."""
     itemsize = ITEMSIZE[dtype]
-    pixels = frames * chain['size'] ** 2
     convs = k5_convs(chain)
     macs = sum(k * k * ci * co for ci, co, k, _ in convs)
     w_bytes = sum(k * k * ci * co * itemsize + co * 4

@@ -5,7 +5,7 @@
         [--resume-from CKPT | --auto-resume] [--log-interval N]
         [--mesh D,1] [--validate [--val-interval N] [--val-json J]
         [--val-root R] [--val-max-videos N] [--val-l2cs]]
-        [--cfg-options a.b=v ...]
+        [--profile-dir DIR] [--cfg-options a.b=v ...]
     torchrun --nproc-per-node D -m mcgaze_tpu_torch.tools.train <config> ...
 
 The config is one of configs/ (native or legacy), loaded without the JAX
@@ -27,6 +27,11 @@ number of processes; a model axis (D,M with M > 1) is not ported
 runs the gaze video eval of the val set every --val-interval steps
 (default: the checkpoint interval) with the live weights, rank-sharded,
 and logs its MAE (train/hooks.py::ValidationHook).
+
+At start every process prints its environment (utils/collect_env.py).
+--profile-dir DIR records a torch.profiler trace of iterations start+3 to
+start+8, counted from the resumed step (utils/profiling.py::trace, a
+Chrome trace in DIR), or to the run's end if that comes first.
 """
 from __future__ import annotations
 
@@ -71,6 +76,9 @@ def parse_args(argv=None):
     p.add_argument('--val-max-videos', type=int, default=0)
     p.add_argument('--val-l2cs', action='store_true',
                    help='score validation with the l2cs GT layout')
+    p.add_argument('--profile-dir', default=None,
+                   help='record a torch.profiler trace of iterations 3-8 '
+                        '(after the resumed step) into this directory')
     return p.parse_args(argv)
 
 
@@ -146,11 +154,14 @@ def main(argv=None) -> dict:
     from ..utils.checkpoint import find_latest_checkpoint, save_checkpoint
     from ..utils.config import load_config
     from ..utils.env import resolve_device
-    from ..utils.profiling import IterTimer
+    from ..utils.collect_env import collect_env
+    from ..utils.profiling import IterTimer, trace
     from ..data.prefetch import device_put_batches
 
     device = resolve_device(args.device)
     init_distributed(device)         # NCCL: selects this process's card
+    for k, v in collect_env().items():
+        print(f'env: {k}: {v}')
     args.seed = sync_random_seed(args.seed)
     mesh = parse_mesh(args.mesh)
     rank, n_proc = process_index(), process_count()
@@ -206,9 +217,20 @@ def main(argv=None) -> dict:
     nan_guard = CheckInvalidLoss(interval=log_interval)
     timer = IterTimer()
     history, path, validation = [], None, []
+    start_step = state.step
+    prof = None                       # the --profile-dir trace, recording
     barrier('train_start')
     try:
-        for it in range(state.step, max_iters):
+        for it in range(start_step, max_iters):
+            if args.profile_dir is not None:
+                # iterations start+3 .. start+7, as the JAX CLI traces
+                if it == start_step + 3 and it + 1 < max_iters:
+                    prof = trace(args.profile_dir)
+                    prof.__enter__()
+                elif it == start_step + 8 and prof is not None:
+                    prof.__exit__(None, None, None)
+                    prof = None
+                    print(f'profiler trace -> {args.profile_dir}')
             timer.before_iter()
             batch = next(batches)
             lr = sched(it)
@@ -230,7 +252,13 @@ def main(argv=None) -> dict:
                 metrics = val_hook.after_iter(it + 1, state)
                 if metrics is not None:
                     validation.append(dict(step=it + 1, **metrics))
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            prof = None
+            print(f'profiler trace -> {args.profile_dir}')
     finally:
+        if prof is not None:              # an exception: stop recording
+            prof.__exit__(None, None, None)
         batches.close()
     return dict(state=state, history=history, checkpoint=path,
                 work_dir=work_dir, validation=validation)

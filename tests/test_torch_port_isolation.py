@@ -1,6 +1,7 @@
 """The port imports no JAX: a fresh interpreter imports every module of
 mcgaze_tpu_torch, and none of jax, flax or mcgaze_tpu is loaded; the
-learning proofs load no cv2 either. And chip_smoke.py refuses to run
+learning proofs, the analysis and misc tools and their utilities import
+with jax, mcgaze_tpu and cv2 blocked. And chip_smoke.py refuses to run
 without a card."""
 import os.path as osp
 import shutil
@@ -58,34 +59,55 @@ def test_port_imports_no_jax():
                  'tools.dataset_converters.gaze360.generate_json_from_ori',
                  'tools.dataset_converters.rtgene.convert',
                  'tools.dataset_converters.mpeblink_build_raw_frames_dataset',
-                 'tools.analysis_tools.npy_frames',
-                 'tools.analysis_tools.crop_sensitivity',
-                 'tools.analysis_tools.instblink_burnin'):
+                 *(f'tools.{m}' for m in NO_CV2_TOOLS),
+                 *(f'utils.{m}' for m in NO_CV2_UTILS), 'ops.routing'):
         assert f'mcgaze_tpu_torch.{name}' in walked, name
 
 
+# the tools and utilities that run where there is no OpenCV (the card's
+# machine), or import it only inside main (visualize_results,
+# browse_dataset draw with it)
+NO_CV2_TOOLS = tuple(f'analysis_tools.{m}' for m in (
+    'npy_frames', 'crop_sensitivity', 'instblink_burnin', 'analyze_logs',
+    'benchmark', 'dedup_bench', 'backbone_bench', 'step_breakdown',
+    'get_flops', 'train_bench', 'serve_bench', 'visualize_results')) + (
+    'misc.print_config', 'misc.browse_dataset', 'train')
+NO_CV2_UTILS = ('collect_env', 'benchmarking', 'profiling')
+
 _LEARNING_PROBE = r'''
-import sys
-from mcgaze_tpu_torch.tools.analysis_tools import (crop_sensitivity,
-                                                   instblink_burnin,
-                                                   npy_frames)
-with npy_frames.npy_frames():
+import importlib, sys
+BLOCKED = ('jax', 'jaxlib', 'flax', 'mcgaze_tpu', 'cv2')
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in BLOCKED:
+            raise ImportError(f'{name} is blocked')
+        return None
+
+sys.meta_path.insert(0, Block())
+for name in sys.argv[1:]:
+    importlib.import_module('mcgaze_tpu_torch.' + name)
+from mcgaze_tpu_torch.tools.analysis_tools import npy_frames
+with npy_frames.npy_frames(), npy_frames.npy_request_images():
     pass
-bad = sorted(m for m in sys.modules
-             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'mcgaze_tpu',
-                                    'cv2'))
-print(bad)
+bad = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
+print(len(sys.argv) - 1, bad)
 assert not bad, bad
 '''
 
 
 def test_learning_tools_import_no_jax_and_no_cv2():
-    """The learning proofs and their frame stand-in (which imports the
-    readers it replaces) run where there is no OpenCV: importing them
-    pulls in none of jax, mcgaze_tpu or cv2."""
-    out = subprocess.run([sys.executable, '-c', _LEARNING_PROBE], cwd=ROOT,
-                         capture_output=True, text=True, timeout=300)
+    """The learning proofs, the analysis and misc tools, the train CLI and
+    the utilities they stand on, and the .npy stand-ins (which import the
+    readers they replace) run where there is no OpenCV: each imports in a
+    fresh interpreter with jax, mcgaze_tpu and cv2 blocked."""
+    names = [f'tools.{m}' for m in NO_CV2_TOOLS] + \
+        [f'utils.{m}' for m in NO_CV2_UTILS]
+    out = subprocess.run([sys.executable, '-c', _LEARNING_PROBE, *names],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.split()[0] == str(len(names))
 
 
 def test_chip_smoke_refuses_without_card(tmp_path):
