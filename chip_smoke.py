@@ -6,7 +6,9 @@
 Phases, each printing one JSON line (any failure exits non-zero):
   env     the card (nvidia-smi name and power limit), torch and CUDA versions
   build   nvcc builds every kernel of mcgaze_tpu_torch/csrc, one process
-          per source, all started together
+          per source, all started together; the kernel and kernel_bwd
+          phases run once K1's and K3's libraries are built, and the line
+          comes when the whole build is done
   kernel  the FPN RoIAlign kernel against its plain PyTorch version on the
           card: f32 and bf16, identity and frame_idx forms, at the gaze
           eval shape (224 px, 32 clips: 131 unique frames, 224 slots, 3
@@ -107,7 +109,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
           exactly 4 launches per forward: identity form from the batcher,
           frame_idx form from the video path): a raw-image request equal
           to process_body in process at 1e-4, a lone and a concurrent
-          round of 8 7-frame JSON requests, a 12 s closed-loop window of 8
+          round of 8 7-frame JSON requests, an 8 s closed-loop window of 8
           clients (every response finite with unit gazes, the batcher
           fusing more than one clip; latency percentiles over all its
           requests, requests/s over the window), two 33-frame requests
@@ -151,6 +153,18 @@ Phases, each printing one JSON line (any failure exits non-zero):
           the two instblink phases above with the TeViT config
   ddp     the gaze train CLI and tools.test under an NCCL group of one
           process against the same runs without it (phase_ddp)
+  tp      tensor parallelism, the 'model' mesh axis, at full width, f32,
+          TF32 off: the gaze train step at --mesh 1,2 in two processes
+          against --mesh 1,1, across two cards under NCCL (the train CLI)
+          where two are visible, else sharing the one card over gloo (the
+          library step); 4 K1 and 4 K3 a step in each process, the first
+          loss and grad_norm and the gathered parameters within the JAX
+          package's 1x2 bounds, the replicated parameters bit for bit
+          equal on both ranks, the seeded model gathered from its slices
+          bit for bit the one-process model and tools.test's results on
+          it those of the 1,1 one, tools.test on the trained tp
+          checkpoint finite; ms per step at both meshes, labelled
+          with the form, and each process's peak memory (phase_tp)
   tools   the port's measurement tools through their main(argv), full
           width, few iterations: collect_env (the card, the built
           kernels), benchmark (synthetic; --e2e on the fused
@@ -160,9 +174,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
           get_flops (plain and fused forwards within 1%, the train step;
           a launch outside a counted operator fails), train_bench (step
           and --e2e), serve_bench (engine), the train CLI's --profile-dir
-          (a trace naming K1 and K3) and analyze_logs; each tool's launch
-          counts equal to what its arguments make it launch, every number
-          it prints finite; the readings beside the card (phase_tools)
+          (a trace naming K1 and K3), analyze_logs and roi_kernel_check
+          (K1 and K3 through both routes at its two shapes); each tool's
+          launch counts equal to what its arguments make it launch, every
+          number it prints finite; the readings beside the card
+          (phase_tools)
   learning  the learning proofs at the JAX tools' counts, f32, TF32 off:
           tools.analysis_tools.crop_sensitivity (gaze: 1500 steps on 20
           fabricated videos, scored with the fixed and the reference crop)
@@ -185,6 +201,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -222,8 +239,16 @@ TOL_K4 = 2e-5
 TOL_K5_F32_REL = 1e-4
 
 
+# readings a later phase sizes itself by (the train phase's peak memory)
+READINGS = {}
+T_START = time.perf_counter()
+
+
 def emit(phase, **kw):
-    print(json.dumps({'phase': phase, **kw}), flush=True)
+    """One phase's JSON line, with the script's seconds so far."""
+    print(json.dumps({'phase': phase, **kw,
+                      'script_s': time.perf_counter() - T_START}),
+          flush=True)
 
 
 def check(cond, msg):
@@ -286,10 +311,18 @@ def video_sel(frames, clip_batch=8, t=7, stride=4):
             stride * (k_pad - 1) + t)
 
 
+def device_normal(rng, shape, device, dtype):
+    """N(0, 1) values of `shape` drawn on `device` from a seed taken
+    off the numpy stream: a host draw of a 384x640 pyramid for 88 frames
+    (460M values) takes tens of seconds of the script's time limit."""
+    gen = torch.Generator(device=device).manual_seed(
+        int(rng.randint(2 ** 31)))
+    return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+
 def make_pyramid(rng, u, img_hw, c, device, dtype):
-    return tuple(torch.from_numpy(rng.randn(u, img_hw[0] // s, img_hw[1] // s,
-                                            c).astype(np.float32))
-                 .to(device, dtype) for s in (4, 8, 16, 32))
+    return tuple(device_normal(rng, (u, img_hw[0] // s, img_hw[1] // s, c),
+                               device, dtype) for s in (4, 8, 16, 32))
 
 
 def make_rois(rng, n, r, img_hw):
@@ -468,8 +501,8 @@ def phase_kernel_bwd(device, timer, cases=None, phase='kernel_bwd',
         fidx = (None if cs['fidx'] is None
                 else torch.from_numpy(cs['fidx']).to(device))
         shapes = [tuple(f.shape) for f in feats]
-        g = torch.from_numpy(rng.randn(cs['n'], cs['r'], 7, 7, 256).astype(
-            np.float32)).to(device, dtype)
+        g = device_normal(rng, (cs['n'], cs['r'], 7, 7, 256), device,
+                          dtype)
         out_bytes = sum(f.numel() for f in feats) * feats[0].element_size()
         # the cells no RoI reaches: where the plain f32 gradient of an
         # all-ones cotangent (terms >= 0, nothing cancels) is 0
@@ -776,6 +809,7 @@ def phase_train(device):
         walls.append((time.perf_counter() - t1) * 1e3)
     step_ms = float(np.median(walls[1:]))
     clips = cfg.data_train.batch_size
+    READINGS['train_peak_bytes'] = torch.cuda.max_memory_allocated()
     emit('train', config=os.path.relpath(TRAIN_CONFIG, ROOT),
          clips_per_step=clips, frames_per_step=clips * cfg.model.clip_length,
          steps=steps, main_path_seconds=main_s, launches=launches,
@@ -1815,7 +1849,7 @@ def clip_err(resp, ref, tol):
     return err
 
 
-SERVE_WINDOW_S = 12.0   # the closed-loop window the serving rate is read on
+SERVE_WINDOW_S = 8.0    # the closed-loop window the serving rate is read on
 
 
 def phase_serve(device, checkpoint, opts=(), dtype='bfloat16',
@@ -2865,7 +2899,8 @@ def phase_ddp(device, steps=2, opts=(), lengths=(60, 33)):
             synthetic_batches(cfg, seed=2)).items()}
         step_fn = make_train_step(cfg.model, cfg.optim)
         walls = dict(plain=[], ddp=[])
-        for name in ('plain', 'ddp', 'ddp', 'plain') * 3:
+        # two rounds of turns: the script's 1200 s limit
+        for name in ('plain', 'ddp', 'ddp', 'plain') * 2:
             st = (plain if name == 'plain' else ddp)['state']
             torch.cuda.synchronize()
             t1 = time.perf_counter()
@@ -2895,7 +2930,7 @@ def phase_ddp(device, steps=2, opts=(), lengths=(60, 33)):
          test_seconds=out['seconds'], results_equal=True,
          step_ms=step_ms, step_ms_all=walls,
          step_ms_note='plain and DDP steps in turns on one batch, median '
-                      'of 5 after the first, TF32 convolutions',
+                      'of 3 after the first, TF32 convolutions',
          clips_per_step=cfg.data_train.batch_size,
          precision='float32, TF32 off, cuDNN deterministic',
          card=nvidia_smi())
@@ -2903,6 +2938,515 @@ def phase_ddp(device, steps=2, opts=(), lengths=(60, 33)):
     torch.cuda.empty_cache()
     shutil.rmtree(root, ignore_errors=True)
     return dict(train=train_launches, test=test_launches)
+
+
+# ------------------------------------------------------ tensor parallel
+
+# the JAX package's 1x2 bounds (tests/test_train_step.py): the first loss,
+# grad_norm, and every parameter after its one step at rtol 2e-4, atol
+# 3e-6, "~3 update magnitudes" of that step's lr (1e-6: Adam's first
+# update is lr * sign(g), and a gradient at rounding level may take
+# either sign). After step k the atol is the same three updates at the lr
+# the k steps applied: 3 x sum(lr_t), 3e-6 after the first step of the
+# shipped schedule (lr 1e-6), 9e-6 after its second (2e-6 more).
+TP_LOSS_REL, TP_GRAD_NORM_REL = 2e-5, 2e-4
+TP_PARAM_RTOL, TP_PARAM_ATOL_UPDATES = 2e-4, 3.0
+
+
+def tp_form(device):
+    """Which form the tp phase takes here: two processes under NCCL, one
+    card each, where two cards are visible; two processes sharing the one
+    card over gloo with CUDA tensors (NCCL refuses two ranks on one card);
+    on the CPU (a rehearsal), two gloo processes."""
+    if device.type != 'cuda':
+        return 'gloo_cpu'
+    return 'nccl_two_cards' if torch.cuda.device_count() >= 2 \
+        else 'gloo_one_card'
+
+
+def replicated_digest(model_sd):
+    """sha256 over the bytes of every tensor TP_RULES leave whole."""
+    import hashlib
+
+    from mcgaze_tpu_torch.parallel.mesh import tp_rule
+    h = hashlib.sha256()
+    for k in sorted(model_sd):
+        if tp_rule(k) is None:
+            h.update(k.encode())
+            h.update(model_sd[k].detach().cpu().contiguous().numpy()
+                     .tobytes())
+    return h.hexdigest()
+
+
+def tp_run(form, n_model, work_dir, steps, clips, opts=(), rank=0,
+           coordinator=None):
+    """One process of the tp phase (n_model 2) or the --mesh 1,1 run it is
+    held against (n_model 1, no process group), f32 with TF32 off and
+    cuDNN deterministic, seed 0, synthetic batches of `clips` clips.
+    nccl_two_cards: the gaze train CLI's main() with --mesh 1,n_model
+    (torchrun's environment, set by the caller); gloo_one_card and
+    gloo_cpu: the library step, create_train_state(mesh=) ->
+    make_train_step, under a gloo group joined here (the CLI would pick
+    NCCL on the card), and the checkpoint the CLI writes. The K1 and K3
+    counters are read over the steps; then ms per step over 4 more steps
+    on a fresh batch with the card's defaults, and the peak memory.
+    Returns (and under a group, rank r writes work_dir/rank<r>.json) the
+    logs per step, launches, the replicated tensors' digest, the timings
+    and the checkpoint of the seeded model (ckpt_0) and of each step (its
+    train file at the last)."""
+    from mcgaze_tpu_torch.ops import roi_align_cuda
+    from mcgaze_tpu_torch.parallel import distributed as D
+    from mcgaze_tpu_torch.tools import train as train_cli
+    from mcgaze_tpu_torch.train.loop import (create_train_state,
+                                             make_train_step)
+    from mcgaze_tpu_torch.utils.cfg_options import apply_overrides
+    from mcgaze_tpu_torch.utils.checkpoint import save_checkpoint
+    from mcgaze_tpu_torch.utils.config import load_config
+
+    device = torch.device('cpu' if form == 'gloo_cpu' else 'cuda')
+    cuda = device.type == 'cuda'
+    opts = ('checkpoint_interval=1', *opts)
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    opts = [f'data_train.batch_size={clips}', *opts]
+    cfg = apply_overrides(load_config(TRAIN_CONFIG), opts)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    roi_align_cuda.launch_count = 0
+    roi_align_cuda.bwd_launch_count = 0
+    try:
+        if form == 'nccl_two_cards':
+            out = train_cli.main([
+                TRAIN_CONFIG, '--synthetic', '--device', 'cuda', '--mesh',
+                f'1,{n_model}', '--max-iters', str(steps), '--work-dir',
+                work_dir, '--log-interval', '1', '--cfg-options', *opts])
+            state, history = out['state'], out['history']
+            device = next(state.model.parameters()).device
+        else:
+            from mcgaze_tpu_torch.parallel.mesh import make_mesh
+            if n_model > 1:
+                D.init_distributed('cpu', coordinator_address=coordinator,
+                                   num_processes=n_model, process_id=rank)
+            mesh = make_mesh(1, n_model)
+            state = create_train_state(cfg.model, cfg.optim, seed=0,
+                                       device=device, mesh=mesh)
+            step_fn = make_train_step(cfg.model, cfg.optim)
+            stream = train_cli.synthetic_batches(cfg, D.data_index())
+            history = []
+            for step in range(1, steps + 1):
+                batch = {k: torch.from_numpy(v).to(device)
+                         for k, v in next(stream).items()}
+                if cuda:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logs = step_fn(state, batch)
+                history.append(dict({k: float(v) for k, v in logs.items()},
+                                    time=time.perf_counter() - t0))
+                # a checkpoint a step, as the CLI at checkpoint_interval=1:
+                # every rank gathers (collectives), rank 0 writes
+                model_sd = train_cli.model_state_dict(state)
+                train_sd = (train_cli.train_state_dict(state)
+                            if step == steps else None)
+                if D.process_index() == 0:
+                    save_checkpoint(work_dir, step, model_sd,
+                                    train_state=train_sd)
+                del model_sd, train_sd
+        if cuda:
+            torch.cuda.synchronize()
+        launches = dict(k1=roi_align_cuda.launch_count,
+                        k3=roi_align_cuda.bwd_launch_count)
+        digest = replicated_digest(state.model.state_dict())
+        # ckpt_0: the seeded model in this mesh's layout, gathered and
+        # written as the steps' checkpoints are (a collective)
+        start = create_train_state(cfg.model, cfg.optim, seed=0,
+                                   device=device, mesh=state.mesh)
+        model_sd = train_cli.model_state_dict(start)
+        if D.process_index() == 0:
+            save_checkpoint(work_dir, 0, model_sd)
+        del start, model_sd
+        # ms per step with the card's defaults, on one fresh batch
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cudnn.deterministic = False
+        batch = {k: torch.from_numpy(v).to(device) for k, v in next(
+            train_cli.synthetic_batches(cfg, seed=2)).items()}
+        step_fn = make_train_step(cfg.model, cfg.optim)
+        walls = []
+        for _ in range(4):
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step_fn(state, batch)
+            if cuda:
+                torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        result = dict(
+            rank=D.process_index(), world=D.process_count(), form=form,
+            mesh=f'1,{n_model}', launches=launches,
+            losses=[h['loss'] for h in history],
+            grad_norms=[h['grad_norm'] for h in history],
+            step_seconds=[h['time'] for h in history],
+            digest=digest, step_ms=float(np.median(walls[1:])),
+            step_ms_all=walls,
+            peak_mem_gb=(torch.cuda.max_memory_allocated(device) / 1e9
+                         if cuda else None),
+            checkpoints=[os.path.join(work_dir, f'ckpt_{t}.pth')
+                         for t in range(steps + 1)])
+        if D.process_count() > 1:
+            with open(os.path.join(work_dir,
+                                   f'rank{D.process_index()}.json'),
+                      'w') as f:
+                json.dump(result, f)
+        return result
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+        if n_model > 1:
+            D.shutdown_distributed()
+
+
+def tp_processes(form, work_dir, steps, clips, opts, timeout=600):
+    """Two processes of tp_run(form, 2, ...), each a fresh interpreter,
+    started together; fails unless both exit 0 (a rank that fails takes
+    the other down at once, which would otherwise wait in a collective).
+    Returns their results in rank order."""
+    port = free_port()
+    procs, logs = [], []
+    for rank in range(2):
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        if form == 'nccl_two_cards':
+            env.update(MASTER_ADDR='127.0.0.1', MASTER_PORT=str(port),
+                       WORLD_SIZE='2', RANK=str(rank), LOCAL_RANK=str(rank))
+        code = ('import sys, json; sys.path.insert(0, sys.argv[1]); '
+                'import chip_smoke as cs; cs.tp_run(sys.argv[2], 2, '
+                'sys.argv[3], int(sys.argv[4]), int(sys.argv[5]), '
+                'json.loads(sys.argv[6]), rank=int(sys.argv[7]), '
+                'coordinator=sys.argv[8])')
+        logs.append(open(os.path.join(work_dir, f'rank{rank}.log'), 'w+'))
+        procs.append(subprocess.Popen(
+            [sys.executable, '-c', code, ROOT, form, work_dir, str(steps),
+             str(clips), json.dumps(list(opts)), str(rank),
+             f'127.0.0.1:{port}'],
+            cwd=ROOT, env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+    t0 = time.perf_counter()
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = any(p.poll() not in (None, 0) for p in procs)
+            if failed or time.perf_counter() - t0 > timeout:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    texts = []
+    for log in logs:
+        log.seek(0)
+        texts.append(log.read())
+        log.close()
+    # the rank that failed first, before one killed here
+    for rank in sorted(range(2), key=lambda r: procs[r].returncode < 0):
+        check(procs[rank].returncode == 0, f'tp rank {rank} ({form}) '
+              f'exited {procs[rank].returncode}:\n{texts[rank][-5000:]}')
+    results = []
+    for rank in range(2):
+        with open(os.path.join(work_dir, f'rank{rank}.json')) as f:
+            results.append(json.load(f))
+    return results
+
+
+def results_err(a: list, b: list) -> dict:
+    """Two results files' entries (one dict a video): `err`, the largest
+    gaze or score difference, absolute, and box difference relative to
+    the reference's largest coordinate, over the frames where both hold a
+    box; `box_presence_differs`, the frames where one side's box score
+    crossed the person threshold and the other's did not."""
+    check(len(a) == len(b), f'{len(a)} videos against {len(b)}')
+    err, presence = 0.0, 0
+    for x, y in zip(a, b):
+        check(sorted(x) == sorted(y), 'results keys differ')
+        for k in y:
+            if k.endswith(('_gazes', '_score')):
+                err = max(err, float(np.abs(np.subtract(
+                    np.asarray(x[k], np.float64),
+                    np.asarray(y[k], np.float64))).max()))
+            elif k.endswith('_bboxes'):
+                both = [(u, v) for u, v in zip(x[k], y[k])
+                        if u is not None and v is not None]
+                presence += sum((u is None) != (v is None)
+                                for u, v in zip(x[k], y[k]))
+                if both:
+                    xs, ys = np.asarray(both, np.float64).transpose(1, 0, 2)
+                    err = max(err, float(np.abs(xs - ys).max()
+                                         / max(np.abs(ys).max(), 1.0)))
+    return dict(err=err, box_presence_differs=presence)
+
+
+def phase_tp(device, steps=2, clips=None, opts=(), lengths=(33, 19)):
+    """Tensor parallelism (the 'model' mesh axis, parallel/
+    tensor_parallel.py) at full width, f32 with TF32 off and cuDNN
+    deterministic: the gaze train step at --mesh 1,2 in two processes
+    against the --mesh 1,1 run on the same seed and synthetic batches, in
+    the form the machine allows (tp_form; printed): across two cards, the
+    train CLI under NCCL; on one card, two processes sharing it over gloo
+    through the library step. Checks: 4 K1 and 4 K3 per step in each
+    process; the first loss within TP_LOSS_REL and grad_norm within
+    TP_GRAD_NORM_REL of the 1,1 run, and the two ranks' logs equal; each
+    step's checkpoint, full-shaped parameters gathered over the model
+    group, within the 1x2 bounds of the 1,1 run's (TP_PARAM_RTOL, and
+    TP_PARAM_ATOL_UPDATES x the lr the steps applied); the replicated
+    parameters bit for bit equal on the two ranks; the seeded model
+    gathered from its slices (ckpt_0) bit for bit the one-process model,
+    and tools.test on it (f32, TF32 off; two fabricated .npy videos) the
+    same results as on the 1,1 one; tools.test on the trained tp
+    checkpoint finite, its distance from the 1,1 one's results reported
+    beside three controls' (the 1,1 checkpoint with every weight one ulp
+    up, and with 1% or all of them moved by an Adam first update of the
+    other sign: how far such changes move a random-weight model's
+    results) and how the two checkpoints' weights differ; 4 K1 a
+    forward. Then ms per
+    step at both meshes and each process's peak memory. `clips` per step:
+    32 where two processes of the train phase's peak fit on the card
+    (one card) or on each card, else 16. `opts` shrinks it for a CPU
+    rehearsal. Returns the launches of the tp processes and of tools.test
+    on the tp checkpoint."""
+    import shutil
+
+    from mcgaze_tpu_torch.evaluation.driver import (VideoGazeEvaluator,
+                                                    clip_slices)
+    from mcgaze_tpu_torch.ops import roi_align_cuda
+    from mcgaze_tpu_torch.parallel import distributed as D
+    from mcgaze_tpu_torch.tools import test as test_cli
+    from mcgaze_tpu_torch.train.loop import step_warmup_schedule
+    from mcgaze_tpu_torch.utils.cfg_options import apply_overrides
+    from mcgaze_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    form = tp_form(device)
+    check(not D._active(), 'a process group is up before the tp phase')
+    cfg = apply_overrides(load_config(TRAIN_CONFIG), list(opts))
+    mcfg = cfg.model
+    stages = mcfg.num_stages
+    peak = READINGS.get('train_peak_bytes')
+    if clips is None:
+        total = torch.cuda.get_device_properties(device).total_memory
+        share = 2 if form == 'gloo_one_card' else 1
+        clips = 32 if peak is None or share * peak <= 0.85 * total else 16
+    root = os.path.join(ROOT, 'work_dirs', 'chip_smoke_tp')
+    shutil.rmtree(root, ignore_errors=True)
+    ref_dir, tp_dir = os.path.join(root, 'mesh11'), os.path.join(root, 'tp')
+    os.makedirs(ref_dir)
+    os.makedirs(tp_dir)
+    ann, frames = write_cli_dataset(root, lengths)['gaze360']
+    decode = VideoGazeEvaluator._decode_video
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    try:
+        ref = tp_run(form, 1, ref_dir, steps, clips, opts)
+        if device.type == 'cuda':
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = tp_processes(form, tp_dir, steps, clips, opts)
+        tp_s = time.perf_counter() - t0
+        r0, r1 = ranks
+        want = dict(k1=stages * steps, k3=stages * steps)
+        if device.type == 'cuda':
+            for r in ranks:
+                check(r['launches'] == want, f'tp rank {r["rank"]} '
+                      f'launched {r["launches"]}, expected {stages} K1 and '
+                      f'{stages} K3 per step')
+            check(ref['launches'] == want, f'tp 1,1 run launched '
+                  f'{ref["launches"]}')
+        check(r0['world'] == r1['world'] == 2 and ref['world'] == 1,
+              'tp: process groups of the wrong size')
+        check((r0['losses'], r0['grad_norms']) == (r1['losses'],
+                                                    r1['grad_norms']),
+              'tp: the two ranks logged other losses or grad norms')
+        check(r0['digest'] == r1['digest'], 'tp: the replicated parameters '
+              'differ between the two ranks')
+        finite = np.isfinite(r0['losses'] + r0['grad_norms']).all()
+        loss_rel = abs(r0['losses'][0] - ref['losses'][0]) / abs(
+            ref['losses'][0])
+        gn_rel = abs(r0['grad_norms'][0] - ref['grad_norms'][0]) / abs(
+            ref['grad_norms'][0])
+        check(finite and loss_rel <= TP_LOSS_REL, f'tp first loss '
+              f'{r0["losses"][0]} vs {ref["losses"][0]} ({loss_rel})')
+        check(gn_rel <= TP_GRAD_NORM_REL, f'tp first grad_norm '
+              f'{r0["grad_norms"][0]} vs {ref["grad_norms"][0]} ({gn_rel})')
+
+        # each step's checkpoint: full-shaped, within the 1x2 bounds
+        sched = step_warmup_schedule(cfg.optim)
+        params = []
+        for t, (mine, theirs) in enumerate(zip(r0['checkpoints'],
+                                               ref['checkpoints'])):
+            got = torch.load(mine, map_location='cpu',
+                             weights_only=True)['state_dict']
+            want_sd = torch.load(theirs, map_location='cpu',
+                                 weights_only=True)['state_dict']
+            check({k: tuple(v.shape) for k, v in got.items()} ==
+                  {k: tuple(v.shape) for k, v in want_sd.items()},
+                  f'tp ckpt_{t}: other tensors or shapes than the 1,1 one')
+            if t == 0:
+                # the seeded model gathered from its slices: bit for bit
+                check(all(torch.equal(got[k], v)
+                          for k, v in want_sd.items()),
+                      'tp ckpt_0: the gathered seeded model differs from '
+                      'the one-process model')
+                continue
+            atol = TP_PARAM_ATOL_UPDATES * sum(sched(i) for i in range(t))
+            ratio, worst = max(
+                (((got[k].double() - v.double()).abs()
+                  / (atol + TP_PARAM_RTOL * v.double().abs()))
+                 .max().item(), k) for k, v in want_sd.items())
+            i = int(((got[worst].double() - want_sd[worst].double()).abs()
+                     / (atol + TP_PARAM_RTOL
+                        * want_sd[worst].double().abs())).argmax())
+            params.append(dict(step=t, atol=atol, rtol=TP_PARAM_RTOL,
+                               bound_ratio=ratio, worst=worst,
+                               worst_element=[
+                                   float(want_sd[worst].flatten()[i]),
+                                   float(got[worst].flatten()[i])]))
+            print(json.dumps(dict(tp_params=params[-1])), file=sys.stderr,
+                  flush=True)
+            check(ratio <= 1.0, f'tp parameters after step {t}: {worst} '
+                  f'at {ratio} x (atol {atol} + rtol {TP_PARAM_RTOL})')
+        train_file = torch.load(r0['checkpoints'][-1][:-4] + '_train.pth',
+                                map_location='cpu', weights_only=True)
+        moment_shapes = {tuple(st['exp_avg'].shape)
+                         for st in train_file['optimizer']['state'].values()}
+        check({(mcfg.ffn_channels, mcfg.channels),
+               (mcfg.channels, mcfg.roi_size ** 2 * mcfg.channels)}
+              <= moment_shapes, 'tp train file: the split tensors\' AdamW '
+              'moments are not full-shaped')
+        del got, want_sd, train_file
+
+        # tools.test reads the tp checkpoints back: the seeded model's to
+        # the 1,1 one's results exactly; the trained one's to finite
+        # results, its distance from the 1,1 one's reported (two
+        # random-weight models a rounding-level update apart need not
+        # agree: PERF.md)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        VideoGazeEvaluator._decode_video = npy_decode
+        results = {}
+        for tag, ckpt in (('mesh11_0', ref['checkpoints'][0]),
+                          ('tp_0', r0['checkpoints'][0]),
+                          ('mesh11', ref['checkpoints'][-1]),
+                          ('tp', r0['checkpoints'][-1])):
+            path = os.path.join(root, f'results_{tag}.json')
+            roi_align_cuda.launch_count = 0
+            test_cli.main([TRAIN_CONFIG, ckpt, '--json', ann, '--root',
+                           frames, '--out', path, '--device', str(device),
+                           '--dtype', 'float32', '--cfg-options',
+                           'eval_cfg.crop_ratio=None', *opts])
+            if device.type == 'cuda':
+                torch.cuda.synchronize()
+            test_launches = roi_align_cuda.launch_count
+            results[tag] = check_results(path, lengths, 'float32')[0]
+        fwds = sum(-(-len(clip_slices(n, 7, 4)) // 8) for n in lengths)
+        if device.type == 'cuda':
+            check(test_launches == stages * fwds, f'tp test launched '
+                  f'{test_launches} K1, expected {stages} per forward over '
+                  f'{fwds}')
+        check(results['tp_0'] == results['mesh11_0'], 'tools.test on the '
+              'tp ckpt_0 wrote other results than on the 1,1 one')
+        test_err = results_err(results['tp'], results['mesh11'])
+        # controls: the 1,1 checkpoint with every weight one ulp up, and
+        # with a seeded 1% of the weights, or all of them, moved by +-2 lr
+        # of the first step (an Adam first update of the other sign),
+        # running statistics kept, through the same CLI; and how the tp
+        # checkpoint's weights differ from the 1,1 one's
+        base = torch.load(ref['checkpoints'][-1], map_location='cpu',
+                          weights_only=True)
+        tp_sd = torch.load(r0['checkpoints'][-1], map_location='cpu',
+                           weights_only=True)['state_dict']
+        diffs = torch.cat([(tp_sd[k] - v).abs().flatten() for k, v in
+                           base['state_dict'].items()
+                           if v.is_floating_point() and 'running_' not in k])
+        weight_diff = dict(elements=diffs.numel(),
+                           share_differing=float((diffs > 0).double().mean()),
+                           share_over_1e_6=float((diffs > 1e-6).double()
+                                                 .mean()),
+                           max=float(diffs.max()))
+        del tp_sd, diffs
+        gen = torch.Generator().manual_seed(0)
+        flip = 2 * step_warmup_schedule(cfg.optim)(0)
+
+        def moved(v, how):
+            if how == 'one_ulp':
+                return torch.nextafter(v, torch.full_like(v, float('inf')))
+            share = 0.01 if how == 'flip_1pct' else 1.0
+            pick = torch.rand(v.shape, generator=gen) < share
+            sign = torch.randint(0, 2, v.shape, generator=gen) * 2 - 1
+            return v + flip * pick * sign
+
+        controls = {}
+        for how in ('one_ulp', 'flip_1pct', 'flip_all'):
+            ckpt = dict(base, state_dict={
+                k: (v if 'running_' in k or not v.is_floating_point()
+                    else moved(v, how))
+                for k, v in base['state_dict'].items()})
+            path = os.path.join(root, f'ckpt_{how}.pth')
+            torch.save(ckpt, path)
+            del ckpt
+            out = os.path.join(root, f'results_{how}.json')
+            test_cli.main([TRAIN_CONFIG, path, '--json', ann, '--root',
+                           frames, '--out', out, '--device', str(device),
+                           '--dtype', 'float32', '--cfg-options',
+                           'eval_cfg.crop_ratio=None', *opts])
+            controls[how] = results_err(
+                check_results(out, lengths, 'float32')[0],
+                results['mesh11'])
+        del base
+    finally:
+        VideoGazeEvaluator._decode_video = decode
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+        shutil.rmtree(root, ignore_errors=True)
+    launches = dict(k1=r0['launches']['k1'] + r1['launches']['k1'],
+                    k3=r0['launches']['k3'] + r1['launches']['k3'])
+    emit('tp', form=form, mesh='1,2', processes=2, steps=steps,
+         clips_per_step=clips,
+         clips_rule='32 clips where two processes of the train phase\'s '
+                    'peak fit (per card), else 16',
+         train_peak_gb=None if peak is None else peak / 1e9,
+         config=os.path.relpath(TRAIN_CONFIG, ROOT),
+         launches_per_process=[r0['launches'], r1['launches']],
+         launches_mesh11=ref['launches'], test_launches=test_launches,
+         first_loss=[ref['losses'][0], r0['losses'][0]],
+         first_loss_rel_err=loss_rel, loss_bound=TP_LOSS_REL,
+         first_grad_norm=[ref['grad_norms'][0], r0['grad_norms'][0]],
+         first_grad_norm_rel_err=gn_rel, grad_norm_bound=TP_GRAD_NORM_REL,
+         losses={'1,1': ref['losses'], '1,2': r0['losses']},
+         grad_norms={'1,1': ref['grad_norms'], '1,2': r0['grad_norms']},
+         params=params,
+         replicated_equal=True, ckpt0_bitwise=True,
+         test_ckpt0_results_equal=True, test_err_after_steps=test_err,
+         test_err_controls=controls, weight_diff_after_steps=weight_diff,
+         step_ms={'1,1': ref['step_ms'], '1,2': [r0['step_ms'],
+                                                 r1['step_ms']]},
+         step_ms_all={'1,1': ref['step_ms_all'],
+                      '1,2': [r0['step_ms_all'], r1['step_ms_all']]},
+         step_ms_note=f'{form}: median of 3 after one warm step on one '
+                      'fresh batch, TF32 convolutions; the 1,2 processes '
+                      'ran together' + (' on one shared card, so their '
+                                        'times are no measure of tensor '
+                                        'parallelism'
+                                        if form == 'gloo_one_card' else ''),
+         peak_mem_gb={'1,1': ref['peak_mem_gb'],
+                      '1,2': [r0['peak_mem_gb'], r1['peak_mem_gb']]},
+         tp_processes_seconds=tp_s, seconds=time.perf_counter() - t_phase,
+         precision='float32, TF32 off, cuDNN deterministic',
+         card=nvidia_smi())
+    return dict(train=launches, test=test_launches)
 
 
 # ------------------------------------------------------------- learning
@@ -2948,8 +3492,10 @@ def phase_tools(device, opts=(), image=224, clips=32, query_hw=(384, 640),
     frames); step_breakdown, gaze and InstBlink (`query_hw`); get_flops,
     plain and fused eval, plain --train; train_bench, the f32 step and
     --e2e over fabricated .npy frames; serve_bench engine mode (bf16,
-    concurrency 1 and 4); the train CLI with --profile-dir for 9 steps,
-    then analyze_logs on its log. For each, the launch counters reset
+    concurrency 1 and 4); the train CLI with --profile-dir for 6 steps,
+    then analyze_logs on its log; roi_kernel_check (K1 and K3 against the
+    plain version on both routes, every case inside its --tol). For each,
+    the launch counters reset
     before and read after, equal to what its arguments make it launch;
     every number it prints finite. Besides: fwd_dedup against fwd on
     dedup_bench's inputs at TOL_E2E (f32, TF32 off); each fused subset
@@ -2966,7 +3512,7 @@ def phase_tools(device, opts=(), image=224, clips=32, query_hw=(384, 640),
     from mcgaze_tpu_torch.tools import train as train_cli
     from mcgaze_tpu_torch.tools.analysis_tools import (
         analyze_logs, backbone_bench, benchmark, dedup_bench, get_flops,
-        serve_bench, step_breakdown, train_bench)
+        roi_kernel_check, serve_bench, step_breakdown, train_bench)
     from mcgaze_tpu_torch.utils import collect_env
     from mcgaze_tpu_torch.utils.cfg_options import apply_overrides
     from mcgaze_tpu_torch.utils.config import load_config
@@ -3138,11 +3684,11 @@ def phase_tools(device, opts=(), image=224, clips=32, query_hw=(384, 640),
             '--device', dev],
             dict(k1=4 * (tb_iters + 1), k3=4 * (tb_iters + 1)))
         readings['train_bench'] = rows
-        e2e_iters = 6
+        e2e_iters = 3
         rows, _ = run('train_bench_e2e', train_bench.main, [
             '--e2e', '--videos', '2', '--frames', str(frames), '--batch',
             '4', '--image', str(image), '--iters', str(e2e_iters),
-            '--warmup', '1', '--roofline-iters', '4', '--dtypes', 'float32',
+            '--warmup', '1', '--roofline-iters', '2', '--dtypes', 'float32',
             '--device', dev],
             dict(k1=4 * (e2e_iters + 1), k3=4 * (e2e_iters + 1)))
         readings['train_bench_e2e'] = rows
@@ -3163,7 +3709,7 @@ def phase_tools(device, opts=(), image=224, clips=32, query_hw=(384, 640),
         # the train CLI with --profile-dir, then analyze_logs on its log
         prof = os.path.join(root, 'prof')
         work = os.path.join(root, 'train')
-        steps = 9
+        steps = 6          # traces iterations 3-5
         ret, text = run('train_profile_dir', train_cli.main, [
             TRAIN_CONFIG, '--synthetic', '--device', dev, '--max-iters',
             str(steps), '--work-dir', work, '--profile-dir', prof,
@@ -3188,6 +3734,17 @@ def phase_tools(device, opts=(), image=224, clips=32, query_hw=(384, 640),
         _, text = run('analyze_logs', analyze_logs.main, [
             'cal_train_time', os.path.join(work, 'train_log.jsonl')], {})
         check('avg iter time' in text, f'analyze_logs: {text}')
+
+        # roi_kernel_check: K1 and K3 against the plain version, each
+        # route one forward and its backward a shape
+        n_cases = 2 * len(roi_kernel_check.SHAPES)
+        ret, text = run('roi_kernel_check', roi_kernel_check.main,
+                        ['--device', dev], dict(k1=n_cases, k3=n_cases))
+        lines = json_lines(text)
+        check(ret == 0 and len(lines) == 2 * n_cases and
+              all(x['ok'] for x in lines),
+              f'roi_kernel_check failed:\n{text[-3000:]}')
+        readings['roi_kernel_check'] = lines
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3409,17 +3966,47 @@ def main():
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0])
 
+    # one nvcc a source, all started together; the K1 and K3 phases start
+    # as soon as those two libraries are built, K4's once all are (a
+    # thread reads the other builds' output meanwhile)
     t0 = time.perf_counter()
-    report = _native.build_all()
-    emit('build', seconds=time.perf_counter() - t0,
-         kernels={k: dict(seconds=v['seconds'],
-                          ptxas=[ln.strip() for ln in v['log'].splitlines()
-                                 if 'registers' in ln or 'spill' in ln][:8])
-                  for k, v in report.items()})
+    _native.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    builds = {n: _native._start(n) for n in _native.SOURCES
+              if not _native.library_path(n).exists()}
+    built, errors = {}, []
 
-    timer = Timer(device)
-    cases = phase_kernel(device, timer)
-    bwd_cases = phase_kernel_bwd(device, timer)
+    def finish(names):
+        for n in names:
+            log = _native._finish(n, *builds[n]) if n in builds else ''
+            built[n] = dict(seconds=time.perf_counter() - t0, ptxas=[
+                ln.strip() for ln in log.splitlines()
+                if 'registers' in ln or 'spill' in ln][:8])
+
+    def finish_rest():
+        try:
+            finish(('fused_bottleneck', 'stqi_attention'))
+        except BaseException as e:         # raised in the main thread
+            errors.append(e)
+
+    rest = threading.Thread(target=finish_rest, daemon=True)
+    try:
+        finish(('roi_align_fpn', 'roi_align_fpn_bwd'))
+        ready_s = time.perf_counter() - t0
+        rest.start()
+        timer = Timer(device)
+        cases = phase_kernel(device, timer)
+        bwd_cases = phase_kernel_bwd(device, timer)
+        rest.join()
+        if errors:
+            raise errors[0]
+    finally:
+        for proc, tmp, _ in builds.values():
+            if proc.poll() is None:        # only after a failure
+                proc.kill()
+                proc.wait()
+                tmp.unlink(missing_ok=True)
+    emit('build', seconds=time.perf_counter() - t0,
+         roi_align_ready_seconds=ready_s, kernels=built)
     k4_cases = phase_kernel_k4(device, timer)
     k5_cases, _ = phase_kernel_k5(device, timer)
     del timer
@@ -3454,6 +4041,7 @@ def main():
     tv_eval_launches = phase_instblink_eval(
         device, tv_ckpt, config=TEVIT_CONFIG, phase='tevit_eval')
     ddp_launches = phase_ddp(device)
+    tp_launches = phase_tp(device)
     tools_launches = phase_tools(device)
     learning_launches = phase_learning(device)
 
@@ -3510,6 +4098,8 @@ def main():
                   tevit_eval=tv_eval_launches,
                   ddp_train=ddp_launches['train']['k1'],
                   ddp_test=ddp_launches['test'],
+                  tp_train=tp_launches['train']['k1'],
+                  tp_test=tp_launches['test'],
                   tools=tools_launches['k1'],
                   learning=learning_launches['k1']), k1,
              tevit_cases(tevit_k1)),
@@ -3520,6 +4110,7 @@ def main():
                   instblink_train=ib_train_launches['k3'],
                   tevit_train=tv_train_launches['k3'],
                   ddp_train=ddp_launches['train']['k3'],
+                  tp_train=tp_launches['train']['k3'],
                   tools=tools_launches['k3'],
                   learning=learning_launches['k3']), k3,
              tevit_cases(tevit_k3)),

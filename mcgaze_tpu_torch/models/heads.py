@@ -116,7 +116,8 @@ def mlp_tower(features: int, num_layers: int):
 class DynamicConv(nn.Module):
     """Query-conditioned 1x1 conv over the RoI feature (reference
     mmdet/models/utils/transformer.py DynamicConv). block_rows: fc_layer
-    through blocked_linear in eval mode."""
+    through blocked_linear in eval mode; in train mode fc_layer is called
+    as a module, which a model axis replaces by a row-parallel layer."""
 
     def __init__(self, channels=256, feat_channels=64, roi_size=7,
                  block_rows=None):
@@ -139,15 +140,21 @@ class DynamicConv(nn.Module):
         x = roi.reshape(m, -1, c)
         x = F.relu(self.norm_in(torch.bmm(x, p_in)))
         x = F.relu(self.norm_out(torch.bmm(x, p_out)))
-        x = blocked_linear(x.reshape(m, -1), self.fc_layer.weight,
-                           self.fc_layer.bias,
-                           None if self.training else self.block_rows)
+        x = x.reshape(m, -1)
+        if self.training:
+            # a Linear, or under a model axis the RowParallelLinear of
+            # parallel/tensor_parallel.py::shard_model
+            x = self.fc_layer(x)
+        else:
+            x = blocked_linear(x, self.fc_layer.weight, self.fc_layer.bias,
+                               self.block_rows)
         return F.relu(self.fc_norm(x))
 
 
 class _FFN(nn.Module):
     """mmcv FFN's layers (`layers.0.0`, `layers.1`), without the identity:
-    the head adds it before `ffn_norm`."""
+    the head adds it before `ffn_norm`. Under a model axis the two are
+    parallel/tensor_parallel.py's column- and row-parallel layers."""
 
     def __init__(self, channels: int, ffn_channels: int):
         super().__init__()

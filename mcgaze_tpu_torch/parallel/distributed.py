@@ -11,11 +11,17 @@ machinery):
                                allgather (sizes, then payloads padded to
                                the largest), in input order
   * global_normalizer       <- reduce_mean(num_pos): a loss normaliser
-                               summed over the processes
+                               summed over the data axis
   * assert_same_structure   <- the DDP loss-key consistency check
 
 Every function is a no-op in a single-process run (no process group), so
 the same CLIs run on one device and on several processes.
+
+The 'data' axis: every process unless parallel/mesh.py::make_mesh set a
+'model' axis of M > 1, whose M processes (ranks d*M .. d*M + M - 1) hold
+one batch and the shards of one model. data_index, data_count and
+data_group then name this process's place on the data axis; the loss
+normalisers and the logs reduce over it alone.
 """
 from __future__ import annotations
 
@@ -40,6 +46,38 @@ def process_count() -> int:
 
 def process_index() -> int:
     return dist.get_rank() if _active() else 0
+
+
+# the model axis of the mesh in force (set_model_axis); a data group of
+# None: the default group holds the data axis
+_axes = dict(n_model=1, data_group=None)
+
+
+def set_model_axis(n_model: int = 1, data_group=None) -> None:
+    """Record the mesh's model axis: its size and this process's group
+    along the data axis (the processes that hold the same shards).
+    Called by parallel/mesh.py::make_mesh; n_model=1 clears it."""
+    _axes.update(n_model=n_model, data_group=data_group)
+
+
+def model_count() -> int:
+    """Processes on the model axis (1 without one)."""
+    return _axes['n_model'] if _active() else 1
+
+
+def data_count() -> int:
+    """Processes on the data axis: each loads its own share of a batch."""
+    return process_count() // model_count()
+
+
+def data_index() -> int:
+    """This process's place on the data axis (its batch share)."""
+    return process_index() // model_count()
+
+
+def data_group():
+    """The process group of the data axis (None: the default group)."""
+    return _axes['data_group']
 
 
 def _env(*names) -> Optional[str]:
@@ -100,6 +138,7 @@ def shutdown_distributed() -> None:
     """Leave the process group, where one is up."""
     if _active():
         dist.destroy_process_group()
+    set_model_axis()
 
 
 def _comm_device() -> torch.device:
@@ -170,31 +209,32 @@ def gather_objects(local: List[Any]) -> List[Any]:
 def global_normalizer(counts: torch.Tensor, floor: float = 1.0
                       ) -> torch.Tensor:
     """Loss normalisers (avg_factor) for data-parallel training: each count
-    summed over the processes, floored at `floor`, divided by the number of
-    processes. A process's loss sum divided by this, averaged over the
-    processes (DDP's gradient mean), is the global sum over the global
-    count, the single-program loss of the JAX package. One process: the
+    summed over the data axis, floored at `floor`, divided by the number
+    of data processes. A process's loss sum divided by this, averaged over
+    the data axis (DDP's gradient mean), is the global sum over the global
+    count, the single-program loss of the JAX package. The processes of a
+    model axis hold one batch and count it once. One data process: the
     count floored. Counts carry no gradient."""
     counts = counts.detach().to(torch.float32)
-    world = process_count()
+    world = data_count()
     if world == 1:
         return counts.clamp_min(floor)
     total = counts.clone()
-    dist.all_reduce(total)
+    dist.all_reduce(total, group=data_group())
     return total.clamp_min(floor) / world
 
 
 def average_over_processes(logs: dict) -> dict:
-    """Scalar logs averaged over the processes in one allreduce (each
-    process's loss is its share of the global loss, global_normalizer);
-    unchanged in a single-process run."""
-    if process_count() == 1 or not logs:
+    """Scalar logs averaged over the data axis in one allreduce (each
+    data process's loss is its share of the global loss,
+    global_normalizer); unchanged with one data process."""
+    if data_count() == 1 or not logs:
         return logs
     names = list(logs)
     stacked = torch.stack([logs[k].detach().to(torch.float32).reshape(())
                            for k in names])
-    dist.all_reduce(stacked)
-    stacked /= process_count()
+    dist.all_reduce(stacked, group=data_group())
+    stacked /= data_count()
     return dict(zip(names, stacked.unbind()))
 
 

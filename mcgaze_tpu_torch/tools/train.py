@@ -3,10 +3,10 @@
     python -m mcgaze_tpu_torch.tools.train <config> [--synthetic]
         [--max-iters N] [--device cuda|cpu] [--work-dir DIR] [--seed S]
         [--resume-from CKPT | --auto-resume] [--log-interval N]
-        [--mesh D,1] [--validate [--val-interval N] [--val-json J]
+        [--mesh D,M] [--validate [--val-interval N] [--val-json J]
         [--val-root R] [--val-max-videos N] [--val-l2cs]]
         [--profile-dir DIR] [--cfg-options a.b=v ...]
-    torchrun --nproc-per-node D -m mcgaze_tpu_torch.tools.train <config> ...
+    torchrun --nproc-per-node N -m mcgaze_tpu_torch.tools.train <config> ...
 
 The config is one of configs/ (native or legacy), loaded without the JAX
 package. --synthetic trains on random batches made from the seed, as the
@@ -16,17 +16,27 @@ config's data_train is read. The model starts from seeded random weights
 and at the end it writes ckpt_<step>.pth (the model under the reference
 names) and ckpt_<step>_train.pth (optimizer, step, EMA).
 
-Data parallel: under a launcher (torchrun; parallel/distributed.py::
-init_distributed reads its environment) every process drives one device
-(NCCL on the card, gloo on the CPU), the config's global batch_size is
-split over the processes, each process's stream is seeded with seed + rank
-(rank 0's seed, broadcast), and DDP averages the gradients before the clip
-(train/loop.py). --mesh D,1 names the data axis, which must equal the
-number of processes; a model axis (D,M with M > 1) is not ported
-(parallel/mesh.py). Rank 0 alone logs and writes checkpoints. --validate
-runs the gaze video eval of the val set every --val-interval steps
-(default: the checkpoint interval) with the live weights, rank-sharded,
-and logs its MAE (train/hooks.py::ValidationHook).
+Under a launcher (torchrun; parallel/distributed.py::init_distributed
+reads its environment) every process drives one device (NCCL on the card,
+gloo on the CPU), and --mesh D,M lays the N = D x M processes out as the
+JAX CLI's mesh (default: D = N, M = 1; parallel/mesh.py):
+  * D, the data axis: the config's global batch_size is split over the D
+    data ranks, each data rank's stream is seeded with seed + its data
+    index (rank 0's seed, broadcast), and DDP over the data axis averages
+    the gradients before the clip (train/loop.py);
+  * M, the model axis (tensor parallelism): the M ranks of a model group
+    read the same batch, and each holds a 1/M slice of every head's FFN
+    (fc1's weight and bias along its ffn_channels outputs, fc2's weight
+    along its inputs) and of DynamicConv's fc_layer weight (along its
+    roi_size^2 x channels inputs), every other parameter whole
+    (parallel/tensor_parallel.py). M must divide both widths.
+Rank 0 alone logs and writes checkpoints; every rank gathers the split
+tensors first, so a checkpoint holds full tensors whatever the mesh and
+resumes under any other (--resume-from). --validate runs the gaze video
+eval of the val set every --val-interval steps (default: the checkpoint
+interval) with the live weights (under a model axis, a full model from
+the gathered weights on every rank), rank-sharded, and logs its MAE
+(train/hooks.py::ValidationHook).
 
 At start every process prints its environment (utils/collect_env.py).
 --profile-dir DIR records a torch.profiler trace of iterations start+3 to
@@ -61,9 +71,10 @@ def parse_args(argv=None):
     p.add_argument('--cfg-options', nargs='+', default=None,
                    help="config overrides 'a.b=val'")
     p.add_argument('--mesh', default=None, metavar='D,M',
-                   help='data,model axis sizes; D must equal the number of '
-                        'processes, M must be 1 (default: every process on '
-                        'the data axis)')
+                   help='data,model axis sizes over D x M processes: D '
+                        'splits the batch, M (tensor parallelism) splits '
+                        "each head's FFN and DynamicConv fc_layer weights "
+                        '(default: every process on the data axis)')
     p.add_argument('--validate', action='store_true',
                    help='run the val MAE every --val-interval iters')
     p.add_argument('--val-interval', type=int, default=None,
@@ -108,29 +119,78 @@ def synthetic_batches(cfg, seed=0):
             gt_boxes=boxes, gt_valid=valid, gt_gazes=gazes)
 
 
+def _moments(opt_sd: dict, names: list, fn) -> dict:
+    """opt_sd (an optimizer state dict) with each parameter's AdamW moments
+    passed through fn({name: moment}) per moment kind, by the parameter
+    names in the optimizer's numbering."""
+    state = {i: dict(st) for i, st in opt_sd['state'].items()}
+    for kind in ('exp_avg', 'exp_avg_sq'):
+        new = fn({names[i]: st[kind] for i, st in state.items()
+                  if kind in st})
+        for i, st in state.items():
+            if kind in st:
+                st[kind] = new[names[i]]
+    return dict(opt_sd, state=state)
+
+
+def optimizer_names(state) -> list:
+    """The model's parameter names in the order the optimizer's state
+    dict numbers them."""
+    by_id = {id(p): n for n, p in state.model.named_parameters()}
+    return [by_id[id(p)] for g in state.optimizer.param_groups
+            for p in g['params']]
+
+
+def model_state_dict(state) -> dict:
+    """The model's full state dict under the reference names; under a
+    model axis a collective that every rank calls."""
+    from ..parallel.tensor_parallel import gather_state_dict
+    return gather_state_dict(state.model, state.mesh)
+
+
 def train_state_dict(state) -> dict:
-    """What resume needs beside the model: optimizer, step, EMA."""
-    return dict(optimizer=state.optimizer.state_dict(), step=state.step,
-                ema=None if state.ema is None
-                else {k: v.detach().cpu() for k, v in state.ema.items()})
+    """What resume needs beside the model: optimizer, step, EMA, as full
+    tensors whatever the mesh (the AdamW moments and the EMA of a split
+    parameter gathered over the model group: a collective that every
+    rank calls)."""
+    from ..parallel.tensor_parallel import gather_state_dict
+
+    def gather(named):
+        return gather_state_dict(named, state.mesh)
+
+    ema = None if state.ema is None else gather(state.ema)
+    return dict(optimizer=_moments(state.optimizer.state_dict(),
+                                   optimizer_names(state), gather),
+                step=state.step,
+                ema=None if ema is None
+                else {k: v.detach().cpu() for k, v in ema.items()})
 
 
 def restore_train_state(state, path: str, clean=None) -> None:
     """Load ckpt_<step>.pth (and its _train file when present) into state,
     in place. `clean` maps the file's state dict to the model's keys
-    (default: utils/convert.py::clean_reference_state_dict)."""
+    (default: utils/convert.py::clean_reference_state_dict). The files
+    hold full tensors; under a model axis each rank keeps its slices of
+    the split ones (tensor_parallel.shard_state_dict), so a checkpoint of
+    any mesh resumes under any other."""
+    from ..parallel.tensor_parallel import shard_state_dict
     from ..utils.checkpoint import restore_checkpoint, train_path
     from ..utils.convert import clean_reference_state_dict
+
+    def shard(named):
+        return shard_state_dict(named, state.mesh)
+
     ckpt = restore_checkpoint(path)
     state.model.load_state_dict(
-        (clean or clean_reference_state_dict)(ckpt['state_dict']),
+        shard((clean or clean_reference_state_dict)(ckpt['state_dict'])),
         strict=True)
     if osp.exists(train_path(path)):
         tr = restore_checkpoint(train_path(path))
-        state.optimizer.load_state_dict(tr['optimizer'])
+        state.optimizer.load_state_dict(_moments(
+            tr['optimizer'], optimizer_names(state), shard))
         state.step = int(tr['step'])
         if tr['ema'] is not None and state.ema is not None:
-            for k, v in tr['ema'].items():
+            for k, v in shard(tr['ema']).items():
                 state.ema[k].copy_(v)
     else:
         print(f'warning: {train_path(path)} missing: optimizer state and '
@@ -143,10 +203,10 @@ def main(argv=None) -> dict:
     written (None on ranks other than 0), work_dir, validation: the
     ValidationHook's metrics per interval (rank 0))."""
     args = parse_args(argv)
-    from ..parallel.distributed import (barrier, init_distributed,
-                                        process_count, process_index,
-                                        sync_random_seed)
-    from ..parallel.mesh import parse_mesh, wrap_model
+    from ..parallel.distributed import (barrier, data_index,
+                                        init_distributed, process_count,
+                                        process_index, sync_random_seed)
+    from ..parallel.mesh import check_model_axis, parse_mesh, wrap_model
     from ..train.hooks import CheckInvalidLoss, TextLogger, ValidationHook
     from ..train.loop import (create_train_state, make_train_step,
                               step_warmup_schedule)
@@ -170,35 +230,36 @@ def main(argv=None) -> dict:
     os.makedirs(work_dir, exist_ok=True)
     max_iters = args.max_iters or cfg.optim.max_iters
     log_interval = args.log_interval or cfg.log_interval
-    if n_proc > 1:
-        # the config's batch is global; each process loads its share
+    check_model_axis(mesh.n_model, cfg.model)
+    if mesh.n_data > 1:
+        # the config's batch is global; each data rank loads its share
         global_b = cfg.data_train.batch_size
-        if global_b % n_proc:
+        if global_b % mesh.n_data:
             raise SystemExit(f'batch_size {global_b} does not divide over '
-                             f'{n_proc} processes')
+                             f'{mesh.n_data} data ranks')
         cfg = dataclasses.replace(cfg, data_train=dataclasses.replace(
-            cfg.data_train, batch_size=global_b // n_proc))
+            cfg.data_train, batch_size=global_b // mesh.n_data))
     if rank == 0:
         print(f'mesh: data={mesh.n_data} model={mesh.n_model}, '
               f'{n_proc} processes')
 
     state = create_train_state(cfg.model, cfg.optim, seed=args.seed,
-                               device=device)
+                               device=device, mesh=mesh)
     resume = args.resume_from or (
         find_latest_checkpoint(work_dir) if args.auto_resume else None)
     if resume:
         restore_train_state(state, resume)
         print(f'resumed from {resume} at step {state.step}')
-    state.ddp = wrap_model(state.model, device)
+    state.ddp = wrap_model(state.model, device, mesh)
 
-    # per-process streams differ by the seed offset
+    # streams differ by the data index: a model group reads one batch
     if args.synthetic:
-        host = synthetic_batches(cfg, args.seed + rank)
+        host = synthetic_batches(cfg, args.seed + data_index())
     else:
         from ..data.dataset import Gaze360ClipDataset
         ds = Gaze360ClipDataset(cfg.data_train, seed=args.seed)
         print(f'dataset: {len(ds)} annotated frames')
-        host = ds.batches(seed=args.seed + rank)
+        host = ds.batches(seed=args.seed + data_index())
     batches = device_put_batches(host, device)
 
     val_hook = None
@@ -241,13 +302,19 @@ def main(argv=None) -> dict:
             history.append(dict({k: float(v) for k, v in logs.items()},
                                 lr=lr, time=timer.time,
                                 data_time=timer.data_time))
-            if rank == 0 and ((it + 1) % cfg.checkpoint_interval == 0
-                              or it + 1 == max_iters):
-                path = save_checkpoint(work_dir, it + 1,
-                                       state.model.state_dict(),
-                                       train_state=train_state_dict(state),
-                                       max_to_keep=args.max_keep_ckpts)
-                print(f'saved {path}')
+            if ((it + 1) % cfg.checkpoint_interval == 0
+                    or it + 1 == max_iters) and (rank == 0
+                                                 or mesh.n_model > 1):
+                # the gathers are collectives: every rank of a model
+                # axis takes part, rank 0 alone writes
+                model_sd = model_state_dict(state)
+                train_sd = train_state_dict(state)
+                if rank == 0:
+                    path = save_checkpoint(work_dir, it + 1, model_sd,
+                                           train_state=train_sd,
+                                           max_to_keep=args.max_keep_ckpts)
+                    print(f'saved {path}')
+                del model_sd, train_sd
             if val_hook is not None:
                 metrics = val_hook.after_iter(it + 1, state)
                 if metrics is not None:

@@ -12,9 +12,10 @@ mcgaze_tpu/train/criterion.py:
 with the weights of ModelConfig; logs are keyed `stage{i}_{name}`.
 
 num_pos and the gaze means' positive counts are the global ones: in a
-data-parallel run each is summed over the processes before dividing
-(parallel/distributed.py::global_normalizer), so DDP's gradient mean
-equals the JAX package's single-program loss over the global batch.
+data-parallel run each is summed over the data axis before dividing
+(parallel/distributed.py::global_normalizer; the ranks of a model axis
+hold one batch and count it once), so DDP's gradient mean equals the JAX
+package's single-program loss over the global batch.
 """
 from __future__ import annotations
 

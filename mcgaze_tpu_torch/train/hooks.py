@@ -42,6 +42,20 @@ class CheckInvalidLoss:
                 f'loss became non-finite ({loss}) at iter {step}')
 
 
+def full_model(model: torch.nn.Module, model_cfg, mesh, device
+               ) -> torch.nn.Module:
+    """`model` itself, or under a model axis an MCGazeModel holding the
+    full weights gathered over the model group (a collective: every rank
+    calls it)."""
+    if mesh is None or mesh.n_model == 1:
+        return model
+    from ..models.mcgaze import MCGazeModel
+    from ..parallel.tensor_parallel import gather_state_dict
+    full = MCGazeModel(model_cfg)
+    full.load_state_dict(gather_state_dict(model, mesh), strict=True)
+    return full.to(device)
+
+
 class ValidationHook:
     """Every `interval` iterations, the gaze video eval of the val set with
     the live training weights, scored by MAE (built by the train CLI's
@@ -50,7 +64,10 @@ class ValidationHook:
     Several processes: each evaluates its rank-strided share of the
     videos; after a barrier the results are gathered in video order, and
     rank 0 scores and logs them. Every rank calls after_iter at each
-    interval, since the gather is a collective."""
+    interval, since the gather is a collective. Under a model axis every
+    rank first gathers the split weights into a full model of its own
+    (full_model), so no model-axis collective runs while the ranks hold
+    different videos."""
 
     def __init__(self, cfg, json_path: str, img_root: str,
                  interval: int = 1000, max_videos: int = 0,
@@ -73,19 +90,23 @@ class ValidationHook:
         self.local_videos = shard_across_processes(self.videos)
         self.img_root = img_root
 
-    def evaluate(self, model: torch.nn.Module) -> Optional[Dict[str, float]]:
+    def evaluate(self, model: torch.nn.Module, mesh=None
+                 ) -> Optional[Dict[str, float]]:
         """The metrics on rank 0, None elsewhere. `model` is the live
-        (unwrapped) model; it is in eval mode for the call."""
+        (unwrapped) model, sharded over `mesh`'s model axis if it has
+        one; it is in eval mode for the call."""
         from ..evaluation.driver import VideoGazeEvaluator
         from ..evaluation.forward import bind_forward, make_eval_forward
         from ..evaluation.mae import evaluate_results
         from ..parallel.distributed import barrier, gather_objects
 
+        net = full_model(model, self.cfg.model, mesh, self.device)
         was_training = model.training
         model.eval()
+        net.eval()
         try:
             _, fwd, fwd_dedup = make_eval_forward(
-                self.cfg.model, device=self.device, model=model)
+                self.cfg.model, device=self.device, model=net)
             evaluator = VideoGazeEvaluator(
                 bind_forward(fwd, self.device, fwd_dedup), self.cfg.eval_cfg)
             results = list(evaluator.run_videos_from_paths(
@@ -104,7 +125,7 @@ class ValidationHook:
         if step % self.interval:
             return None
         t0 = time.time()
-        metrics = self.evaluate(state.model)
+        metrics = self.evaluate(state.model, getattr(state, 'mesh', None))
         if metrics is None:                     # ranks other than 0
             return None
         parts = ', '.join(f'{k}: {v:.4f}' for k, v in metrics.items())

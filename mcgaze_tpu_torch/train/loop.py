@@ -23,10 +23,17 @@ torch.optim.AdamW's update is optax.adamw's (decoupled decay
 p -= lr * wd * p, bias-corrected moments, eps outside the square root).
 
 Data parallel (parallel/mesh.py): TrainState.ddp wraps the model in
-DistributedDataParallel, which averages the gradients over the processes
+DistributedDataParallel, which averages the gradients over the data axis
 in backward; the losses divide by global counts, so that average is the
 gradient of the global loss. The global-norm clip and the update run after
-it, on every process alike, and the logs are averaged over the processes.
+it, on every process alike, and the logs are averaged over the data axis.
+
+Tensor parallel (TrainState.mesh with a model axis, parallel/
+tensor_parallel.py): the parameters TP_RULES name are this process's
+slices. The clip's norm and the logged grad_norm count a split gradient's
+squares summed over the model group and a replicated one once, so every
+rank clips by the one-process factor; AdamW and the EMA work element by
+element on the slices.
 """
 from __future__ import annotations
 
@@ -39,6 +46,8 @@ import torch
 from ..evaluation.forward import device_normalize
 from ..models.mcgaze import MCGazeModel, ModelConfig, init_model
 from ..parallel.distributed import average_over_processes
+from ..parallel.mesh import Mesh, tp_rule
+from ..parallel.tensor_parallel import shard_model
 from .criterion import total_loss
 from .hooks import ema_update
 from .targets import flatten_targets
@@ -99,6 +108,8 @@ class TrainState:
     ema: Optional[dict] = None
     # the model under DistributedDataParallel in a data-parallel run
     ddp: Optional[torch.nn.Module] = None
+    # the (data, model) mesh; with a model axis the model is sharded
+    mesh: Optional[Mesh] = None
 
     @property
     def forward_model(self) -> torch.nn.Module:
@@ -125,23 +136,47 @@ def make_optimizer(model: torch.nn.Module,
 
 
 def create_train_state(cfg: ModelConfig, oc: OptimConfig, seed: int = 0,
-                       device='cuda',
-                       model: MCGazeModel | None = None) -> TrainState:
+                       device='cuda', model: MCGazeModel | None = None,
+                       mesh: Mesh | None = None) -> TrainState:
     """A seeded random model (unless `model` is given) in train mode, a
-    fresh AdamW and, with ema_momentum, an EMA copy of the parameters."""
+    fresh AdamW and, with ema_momentum, an EMA copy of the parameters.
+    With a model axis in `mesh` the model is sharded first
+    (tensor_parallel.shard_model: every rank draws the full seeded model
+    and keeps its slices), and the optimizer and EMA hold the slices."""
     if model is None:
         model = init_model(cfg, seed, device)
+    if mesh is not None:
+        shard_model(model, mesh)
     model.train()
     ema = ({n: p.detach().clone() for n, p in model.named_parameters()}
            if oc.ema_momentum else None)
     return TrainState(model=model, optimizer=make_optimizer(model, oc),
-                      step=0, ema=ema)
+                      step=0, ema=ema, mesh=mesh)
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares over every element (optax.global_norm)."""
+def global_norm(tensors, split=(), mesh: Mesh | None = None
+                ) -> torch.Tensor:
+    """sqrt of the sum of squares over every element (optax.global_norm).
+    `split`: further tensors that are this process's slices along the
+    mesh's model axis, whose squares are summed over the model group."""
     norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    total = torch.linalg.vector_norm(torch.stack(norms))
+    split = [t.float() for t in split]
+    if not split or mesh is None or mesh.n_model == 1:
+        return total
+    squares = torch.stack(torch._foreach_norm(split)).square().sum()
+    torch.distributed.all_reduce(squares, group=mesh.model_group)
+    return torch.sqrt(total.square() + squares)
+
+
+def _split_norm(state: 'TrainState', named) -> torch.Tensor:
+    """global_norm of the gradients of `named` (name, parameter) pairs,
+    each split one counted over the model axis."""
+    sharded = state.mesh is not None and state.mesh.n_model > 1
+    whole, split = [], []
+    for name, p in named:
+        (split if sharded and tp_rule(name) else whole).append(p.grad)
+    return global_norm(whole, split, state.mesh)
 
 
 def loss_fn(cfg: ModelConfig, model: MCGazeModel, batch: dict):
@@ -186,15 +221,14 @@ def apply_update(state: TrainState, oc: OptimConfig, sched) -> torch.Tensor:
     for _, p in named:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    grad_norm = global_norm(p.grad for _, p in named)
+    grad_norm = _split_norm(state, named)
 
-    trainable = []
+    live = [(name, p) for name, p in named if param_group(name) != 'frozen']
     for name, p in named:
         if param_group(name) == 'frozen':
             p.grad = None
-        else:
-            trainable.append(p.grad)
-    norm = global_norm(trainable)
+    trainable = [p.grad for _, p in live]
+    norm = _split_norm(state, live)
     factor = torch.where(norm < oc.grad_clip_norm, torch.ones_like(norm),
                          oc.grad_clip_norm / norm)
     torch._foreach_mul_(trainable, factor)

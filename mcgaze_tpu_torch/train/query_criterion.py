@@ -27,7 +27,7 @@ import torch.nn.functional as F
 
 from ..models.query_detector import QueryDetectorConfig
 from ..ops import losses as L
-from ..parallel.distributed import global_normalizer, process_count
+from ..parallel.distributed import data_count, global_normalizer
 from .hungarian import (clip_cost_matrix, clip_targets_from_match,
                         solve_assignments)
 
@@ -101,7 +101,7 @@ def stage_losses(cfg: QueryDetectorConfig, stage_out: dict, batch: dict,
             tg['blink_targets'].reshape(-1), weight=pos.reshape(-1),
             gamma=cfg.focal_gamma, alpha=cfg.focal_alpha,
             avg_factor=num_pos)
-    out['num_pos'] = num_pos * process_count()
+    out['num_pos'] = num_pos * data_count()
     return out
 
 

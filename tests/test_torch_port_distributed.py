@@ -6,7 +6,8 @@ train steps, rank-sharded eval), on the CPU.
     order restore inverse for any (items, processes), the structure
     fingerprint, init_distributed's reading of the torchrun and JAX
     environment names (the process group call replaced), the mesh's
-    refusals (a model axis names ROADMAP item 12b);
+    refusals (a mesh needs D x M processes; a model axis must divide the
+    widths it splits);
   * two gloo processes, each a subprocess with its own timeout (as
     tests/test_multiprocess.py runs JAX's): the seed of rank 0, shard and
     gather in input order with unequal payloads over 16 MiB, the structure
@@ -22,8 +23,20 @@ train steps, rank-sharded eval), on the CPU.
     to 4e-5 of the gradient norm;
   * tools.test on 2 ranks writes the results JSON of 1 process, and the
     train CLI with --mesh 2,1 --validate runs, rank 0 alone logging,
-    validating and writing checkpoints.
+    validating and writing checkpoints;
+  * the 'model' axis (tensor parallelism, parallel/tensor_parallel.py):
+    the port's TP_RULES split exactly the tensors the JAX package's
+    param_shardings splits, along the transposed dimension; the library
+    step at --mesh 1,2 (2 processes) and 2,2 (4) against the 1-process
+    step, as the data-parallel step is held, with the replicated
+    parameters bit for bit equal across each model group, and the loss
+    normalisers (the criterion's too) and the logs reduced over the data
+    group alone; the train CLI
+    at --mesh 1,2 --validate against --mesh 1,1: full-shaped checkpoints
+    (model, AdamW moments, EMA) equal at the same bounds, the validation
+    at 1e-3, and a step resumed under --mesh 1,1 from either checkpoint.
 """
+import hashlib
 import json
 import os
 import os.path as osp
@@ -130,12 +143,21 @@ def test_init_distributed_noop_without_launcher(monkeypatch):
 
 
 def test_mesh_refusals_and_no_wrap_without_group():
+    from mcgaze_tpu_torch.models.mcgaze import ModelConfig
     assert pmesh.make_mesh() == pmesh.Mesh(1, 1)
     assert pmesh.parse_mesh('1,1') == pmesh.Mesh(1, 1)
-    with pytest.raises(NotImplementedError, match='item 12b'):
+    with pytest.raises(ValueError, match='needs 2 processes'):
         pmesh.parse_mesh('1,2')
     with pytest.raises(ValueError, match='needs 2 processes'):
         pmesh.make_mesh(2)
+    pmesh.check_model_axis(2, ModelConfig())
+    pmesh.check_model_axis(8, ModelConfig())
+    # 2048 divides by 8, 7 * 7 * 256 = 12544 by 8 but not by 3 or 5
+    for m, cfg in ((3, ModelConfig()), (5, ModelConfig(ffn_channels=2040)),
+                   (16, ModelConfig(ffn_channels=2056))):
+        with pytest.raises(ValueError, match=f'a model axis of {m} must '
+                           'divide'):
+            pmesh.check_model_axis(m, cfg)
     model = torch.nn.Linear(2, 2)
     assert pmesh.wrap_model(model, 'cpu') is model
 
@@ -211,17 +233,30 @@ def _shard(batch: dict, rank: int, world: int, clip_rows: dict) -> dict:
     return out
 
 
-def gaze_step(batch: dict, ddp: bool):
+def gaze_step(batch: dict, ddp: bool, mesh=None):
+    """One step of the small gaze model from seed 3: the logs and the
+    state dict (full tensors, gathered under a model axis)."""
     from mcgaze_tpu_torch.models.mcgaze import ModelConfig, init_model
+    from mcgaze_tpu_torch.parallel.tensor_parallel import gather_state_dict
     from mcgaze_tpu_torch.train import loop
     cfg = ModelConfig(**SMALL)
     oc = loop.OptimConfig(**OC)
     model = init_model(cfg, seed=3, device='cpu')
-    state = loop.create_train_state(cfg, oc, model=model)
+    state = loop.create_train_state(cfg, oc, model=model, mesh=mesh)
     if ddp:
-        state.ddp = pmesh.wrap_model(model, 'cpu')
+        state.ddp = pmesh.wrap_model(model, 'cpu', mesh)
     logs = loop.make_train_step(cfg, oc)(state, batch)
-    return logs, model.state_dict()
+    return logs, gather_state_dict(model, mesh), state
+
+
+def replicated_digest(model_sd: dict) -> str:
+    """sha256 over the bytes of every tensor TP_RULES leave whole."""
+    h = hashlib.sha256()
+    for k in sorted(model_sd):
+        if pmesh.tp_rule(k) is None:
+            h.update(k.encode())
+            h.update(model_sd[k].detach().contiguous().numpy().tobytes())
+    return h.hexdigest()
 
 
 def query_step(cfg_kw: dict, batch: dict, ddp: bool):
@@ -264,10 +299,51 @@ def _worker(mode: str, out_dir: str, *extra):
         result['normalizer'] = norm.tolist()
     elif mode == 'gaze_step':
         batch = _shard(gaze_batch(), rank, world, {})
-        logs, sd = gaze_step(batch, ddp=True)
+        logs, sd, _ = gaze_step(batch, ddp=True)
         result['logs'] = {k: float(v) for k, v in logs.items()}
         if rank == 0:
             torch.save(sd, osp.join(out_dir, 'params.pth'))
+    elif mode == 'tp_step':
+        n_data, n_model = (int(x) for x in extra[0].split(','))
+        mesh = pmesh.make_mesh(n_data, n_model)
+        batch = _shard(gaze_batch(), D.data_index(), n_data, {})
+        from mcgaze_tpu_torch.models.mcgaze import ModelConfig, init_model
+        from mcgaze_tpu_torch.parallel.tensor_parallel import shard_model
+        logs, full, state = gaze_step(batch, ddp=True, mesh=mesh)
+        model = state.model
+        local = model.state_dict()
+        cfg = ModelConfig(**SMALL)
+        result.update(
+            logs={k: float(v) for k, v in logs.items()},
+            data_index=D.data_index(), model_index=mesh.model_index,
+            data_count=D.data_count(), ddp=state.ddp is not model,
+            replicated=replicated_digest(local),
+            split={k: list(v.shape) for k, v in local.items()
+                   if pmesh.tp_rule(k)},
+            layers=sorted({type(m).__name__ for m in model.modules()
+                           if 'Parallel' in type(m).__name__}))
+        # a sharded copy of the same seed holds slices of the full weights
+        fresh = shard_model(init_model(cfg, seed=3, device='cpu'), mesh)
+        before = init_model(cfg, seed=3, device='cpu').state_dict()
+        result['slices_of_full'] = all(
+            torch.equal(v, before[k].chunk(n_model, pmesh.tp_rule(k)[0])[
+                mesh.model_index]) for k, v in fresh.state_dict().items()
+            if pmesh.tp_rule(k))
+        # the normalisers and logs reduce over the data axis alone: counts
+        # that differ inside a model group show which group summed them
+        from mcgaze_tpu_torch.train import criterion
+        from mcgaze_tpu_torch.train.targets import flatten_targets
+        result['normalizer'] = D.global_normalizer(
+            torch.tensor([float(rank), 0.0])).tolist()
+        result['average'] = float(D.average_over_processes(
+            {'x': torch.tensor(float(rank))})['x'])
+        result['criterion_norms'] = criterion.normalizers(flatten_targets(
+            batch['gt_boxes'], batch['gt_valid'], batch['gt_gazes'],
+            batch['img_whwh'])).tolist()
+        result['criterion_reduces'] = (criterion.global_normalizer
+                                       is D.global_normalizer)
+        if D.process_index() == 0:
+            torch.save(full, osp.join(out_dir, 'params.pth'))
     elif mode.startswith('query_step'):
         cfg_kw = QUERY_TEVIT if mode.endswith('tevit') else QUERY
         t = cfg_kw['clip_length']
@@ -380,7 +456,7 @@ def test_gaze_step_two_ranks_equals_one(tmp_path):
     from mcgaze_tpu_torch.models.mcgaze import ModelConfig, init_model
     before = init_model(ModelConfig(**SMALL), seed=3,
                         device='cpu').state_dict()
-    ref_logs, ref_sd = gaze_step(_shard(batch, 0, 1, {}), ddp=False)
+    ref_logs, ref_sd, _ = gaze_step(_shard(batch, 0, 1, {}), ddp=False)
     assert r0['logs'] == r1['logs']
     for k in ('loss', 'grad_norm'):
         np.testing.assert_allclose(r0['logs'][k], float(ref_logs[k]),
@@ -388,6 +464,141 @@ def test_gaze_step_two_ranks_equals_one(tmp_path):
     got = torch.load(tmp_path / 'params.pth')
     _assert_params_match(got, ref_sd, before)
     shutil.rmtree(tmp_path)
+
+
+def _split_shapes(n_model: int) -> dict:
+    """The shapes of the small model's split tensors on one rank."""
+    c, f, k = 256, SMALL['ffn_channels'], 7 * 7 * 256
+    out = {}
+    for s in range(SMALL['num_stages']):
+        h = f'roi_head.bbox_head.{s}.'
+        out.update({h + 'ffn.layers.0.0.weight': [f // n_model, c],
+                    h + 'ffn.layers.0.0.bias': [f // n_model],
+                    h + 'ffn.layers.1.weight': [c, f // n_model],
+                    h + 'instance_interactive_conv.fc_layer.weight':
+                        [c, k // n_model]})
+    return out
+
+
+@pytest.mark.parametrize('mesh', ['1,2', '2,2'])
+def test_gaze_step_model_axis_equals_one_process(tmp_path, mesh):
+    """The library step over a model axis of 2 (and a data axis of 2 under
+    DDP on the data groups) against the 1-process step on the whole
+    batch: loss and grad_norm at 1e-5 relative, every gathered parameter
+    as _assert_params_match holds the data-parallel step, the logs the
+    same bits on every rank and the replicated parameters the same bits
+    across each model group, except grad_norm at 2e-4 relative, the JAX
+    package's own 1x2 bound (tests/test_train_step.py). Its f32 reading
+    on the CPU carries the CPU's f32 norm error, up to 6e-4 of the norm of
+    a multi-million-element tensor (DynamicConv's 8.4M-element
+    dynamic_layer against float64), and the split norms its fc_layer and
+    FFN gradients in halves: with seed 3 the same gradients read 6e-5
+    apart under the two formulas, while the two steps' gradients are
+    2.4e-6 apart in float64."""
+    n_data, n_model = (int(x) for x in mesh.split(','))
+    world = n_data * n_model
+    results = run_two(tmp_path, 'tp_step', mesh, world=world)
+    from mcgaze_tpu_torch.models.mcgaze import ModelConfig, init_model
+    before = init_model(ModelConfig(**SMALL), seed=3,
+                        device='cpu').state_dict()
+    ref_logs, ref_sd, _ = gaze_step(_shard(gaze_batch(), 0, 1, {}),
+                                    ddp=False)
+    from mcgaze_tpu_torch.train.targets import flatten_targets
+    full = {k: torch.from_numpy(v) for k, v in gaze_batch().items()}
+    tg = flatten_targets(full['gt_boxes'], full['gt_valid'],
+                         full['gt_gazes'], full['img_whwh'])
+    counts = torch.cat([tg.valid.sum(0),
+                        torch.tensor([float(tg.valid.shape[0])])])
+    for rank, r in enumerate(results):
+        assert (r['data_index'], r['model_index']) == divmod(rank, n_model)
+        # the data group of rank r: ranks r % M, r % M + M, ...
+        group = range(rank % n_model, world, n_model)
+        mean = sum(group) / n_data
+        assert r['normalizer'] == [max(sum(group), 1.0) / n_data,
+                                   1.0 / n_data]
+        assert r['average'] == mean
+        assert r['criterion_reduces'] is True
+        np.testing.assert_allclose(r['criterion_norms'],
+                                   (counts / n_data).tolist(), rtol=1e-7)
+        assert r['data_count'] == n_data and r['ddp'] == (n_data > 1)
+        assert r['layers'] == ['ColumnParallelLinear', 'RowParallelLinear']
+        assert r['split'] == _split_shapes(n_model)
+        assert r['slices_of_full'] is True
+        assert r['logs'] == results[0]['logs']
+        group = results[rank - rank % n_model:rank - rank % n_model + n_model]
+        assert all(g['replicated'] == r['replicated'] for g in group)
+    for k, rtol in (('loss', 1e-5), ('grad_norm', 2e-4)):
+        np.testing.assert_allclose(results[0]['logs'][k],
+                                   float(ref_logs[k]), rtol=rtol, err_msg=k)
+    got = torch.load(tmp_path / 'params.pth')
+    assert {k: list(v.shape) for k, v in got.items()} == \
+        {k: list(v.shape) for k, v in ref_sd.items()}
+    _assert_params_match(got, ref_sd, before)
+    shutil.rmtree(tmp_path)
+
+
+def test_tp_rules_match_jax_param_shardings():
+    """The JAX package's param_shardings on a (1, 2) mesh, mapped to the
+    port's names by utils/convert.py::jax_variables_to_state_dict (each
+    leaf a tensor that varies along its split axis only, so the
+    conversion's transposes carry the axis along): the port's TP_RULES
+    split exactly those tensors, along that (transposed) dimension, and
+    shard_model swaps exactly their layers."""
+    import jax
+    import jax.numpy as jnp
+    from mcgaze_tpu.models.mcgaze import MCGazeModel as JModel
+    from mcgaze_tpu.models.mcgaze import ModelConfig as JModelConfig
+    from mcgaze_tpu.parallel.mesh import make_mesh, param_shardings
+
+    from mcgaze_tpu_torch.models.mcgaze import MCGazeModel, ModelConfig
+    from mcgaze_tpu_torch.utils.convert import jax_variables_to_state_dict
+    cfg = JModelConfig(**SMALL)
+    t, img = cfg.clip_length, 64
+    shapes = jax.eval_shape(
+        JModel(cfg).init, jax.random.PRNGKey(0),
+        jnp.zeros((t, img, img, 3), jnp.float32),
+        jnp.tile(jnp.asarray([[img] * 4], jnp.float32), (t, 1)))
+    specs = param_shardings(make_mesh(1, 2), shapes['params'])
+
+    def marked(shape, sharding):
+        # 1 + the index along the 'model' axis, 0 where replicated
+        spec = tuple(sharding.spec) + (None,) * len(shape.shape)
+        axes = [i for i, a in enumerate(spec[:len(shape.shape)])
+                if a == 'model']
+        out = np.zeros(shape.shape, np.float32)
+        for i in axes:
+            idx = [None] * len(shape.shape)
+            idx[i] = slice(None)
+            out += 1 + np.arange(shape.shape[i])[tuple(idx)]
+        return out
+
+    params = jax.tree.map(marked, shapes['params'], specs)
+    sd = jax_variables_to_state_dict({'params': params,
+                                      'stats': jax.tree.map(
+                                          lambda x: np.zeros(x.shape),
+                                          shapes.get('stats', {}))})
+    jax_split = {}
+    for k, v in sd.items():
+        varying = [d for d in range(v.dim())
+                   if v.shape[d] > 1 and not torch.equal(
+                       v, v.narrow(d, 0, 1).expand_as(v))]
+        if v.abs().sum() > 0:
+            assert len(varying) == 1, k
+            jax_split[k] = varying[0]
+    port_split = {k: pmesh.tp_rule(k)[0] for k in sd if pmesh.tp_rule(k)}
+    assert len(jax_split) == 4 * SMALL['num_stages']
+    assert port_split == jax_split
+    model = MCGazeModel(ModelConfig(**SMALL))
+    assert set(model.state_dict()) == set(sd)
+    mesh = pmesh.Mesh(1, 2)
+    from mcgaze_tpu_torch.parallel import tensor_parallel as tp
+    tp.shard_model(model, mesh)
+    swapped = {f'{n}.weight' for n, m in model.named_modules()
+               if isinstance(m, (tp.ColumnParallelLinear,
+                                 tp.RowParallelLinear))}
+    assert swapped == {k for k in port_split if k.endswith('.weight')}
+    assert {k: list(v.shape) for k, v in model.state_dict().items()
+            if k in port_split} == _split_shapes(2)
 
 
 @pytest.mark.parametrize('model', ['instblink', 'tevit'])
@@ -491,6 +702,117 @@ def test_train_cli_mesh_and_validate_two_ranks(tmp_path, gaze_videos):
                                         'train_log.jsonl', 'val_log.jsonl']
     lines = (work / 'train_log.jsonl').read_text().splitlines()
     assert [json.loads(x)['step'] for x in lines] == [1, 2]
+    shutil.rmtree(tmp_path)
+
+
+# the train CLI's optimizer at OC's settings (updates the comparisons see)
+# and an EMA, so the train file holds moments and an EMA copy to gather
+CLI_OC = ['optim.warmup_iters=4', 'optim.warmup_ratio=0.1',
+          'optim.grad_clip_norm=1e-5', 'optim.weight_decay=0.5',
+          'optim.ema_momentum=0.1']
+
+
+# the JAX package's 1x2 bounds (tests/test_train_step.py)
+RTOL_1X2, ATOL_1X2 = 2e-4, 3e-6
+
+
+def _assert_close_1x2(got: dict, ref: dict, what: str, before=None):
+    """Equal keys and shapes, every tensor at the JAX package's 1x2 bounds;
+    with `before`, the whole update (every tensor's, as one vector) within
+    1e-3 of its norm, and some update 10x the bound."""
+    assert list(got) == list(ref), what
+    diff = total = seen = 0.0
+    for k, r in ref.items():
+        torch.testing.assert_close(got[k], r, rtol=RTOL_1X2, atol=ATOL_1X2,
+                                   msg=f'{what} {k}')
+        if before is not None:
+            dref = (r - before[k]).double()
+            diff += ((got[k] - before[k]).double() - dref).square().sum()
+            total += dref.square().sum()
+            seen = max(seen, (dref.abs() / (RTOL_1X2 * r.double().abs()
+                                            + ATOL_1X2)).max().item())
+    if before is not None:
+        assert diff ** 0.5 <= 1e-3 * total ** 0.5 and seen > 10.0, what
+
+
+def test_train_cli_model_axis_checkpoint_validation_resume(tmp_path,
+                                                           gaze_videos):
+    """The train CLI at --mesh 1,2 --validate (2 gloo processes) against
+    --mesh 1,1 (one), 2 iterations each: rank 0 alone writes, the
+    checkpoint holds the full reference-shaped tensors (model, AdamW
+    moments, EMA) and equals the 1,1 one at the bounds below, and the
+    validation equals the 1,1 one at 1e-3. Then one more
+    iteration under --mesh 1,1 resumed from each run's ckpt_2 (the
+    synthetic stream restarts at a resume, so both third steps read the
+    same batch): the two ckpt_3 agree as well.
+
+    The checkpoints, EMA and moments are held at the JAX package's 1x2
+    bounds (rtol 2e-4, atol 3e-6 on every tensor; tests/test_train_step.py)
+    and the model's whole update at 1e-3 of its norm, where the one-step
+    test holds each parameter at 1e-5 / 1e-7 and each tensor's update at
+    1e-3. The split sums round otherwise than the whole ones: with seed 3
+    the library step's gradients sit 1.6e-6 from a one-process step that
+    sums the same halves, both 2.3e-4 from the plain step (the small
+    model's random weights move that far on a reordered sum). Over two
+    steps at seed 0 this reaches 1.28 x (1e-5 |p| + 1e-7) in the stage-0
+    gaze_face_confidence tower (its .3.weight) and 1.3-2.0e-2 of the
+    update norms of two of its LayerNorm biases, whose updates are
+    4.5-6.0e-6 in all (gradients that nearly cancel, read through a
+    detached input); every other tensor's update stays within 3e-4 of
+    its norm."""
+    from mcgaze_tpu_torch.models.mcgaze import init_model
+    from mcgaze_tpu_torch.utils.cfg_options import apply_overrides
+    from mcgaze_tpu_torch.utils.config import load_config
+
+    def argv(work, mesh, iters, *extra):
+        return [GAZE_CFG, '--synthetic', '--device', 'cpu', '--mesh', mesh,
+                '--max-iters', str(iters), '--work-dir', str(work),
+                '--log-interval', '1', *extra, '--cfg-options', *EVAL_OPTS,
+                *CLI_OC, 'data_train.batch_size=2',
+                'data_train.canvas=32,32']
+
+    val = ['--validate', '--val-interval', '2', '--val-json',
+           gaze_videos['ann'], '--val-root', gaze_videos['prefix']]
+    ref_dir, tp_dir = tmp_path / 'ref', tmp_path / 'tp'
+    (ref,) = run_two(tmp_path, 'train_cli', *argv(ref_dir, '1,1', 2, *val),
+                     world=1)
+    r0, r1 = run_two(tmp_path, 'train_cli', *argv(tp_dir, '1,2', 2, *val))
+    assert r0['steps'] == r1['steps'] == 2
+    assert r0['loss'] == r1['loss']
+    np.testing.assert_allclose(r0['loss'], ref['loss'], rtol=1e-5)
+    assert r0['checkpoint'] == str(tp_dir / 'ckpt_2.pth')
+    assert r1['checkpoint'] is None and r1['validation'] == []
+    assert sorted(os.listdir(tp_dir)) == sorted(os.listdir(ref_dir))
+
+    (v_tp,), (v_ref,) = r0['validation'], ref['validation']
+    assert v_tp['step'] == v_ref['step'] == 2 and set(v_tp) == set(v_ref)
+    for k in v_ref:
+        np.testing.assert_allclose(v_tp[k], v_ref[k], rtol=1e-3, err_msg=k)
+
+    cfg = apply_overrides(load_config(GAZE_CFG), EVAL_OPTS + CLI_OC)
+    before = init_model(cfg.model, seed=0, device='cpu').state_dict()
+    load = {d: torch.load(d / 'ckpt_2.pth')['state_dict']
+            for d in (ref_dir, tp_dir)}
+    assert {k: v.shape for k, v in load[tp_dir].items()} == \
+        {k: v.shape for k, v in before.items()}
+    _assert_close_1x2(load[tp_dir], load[ref_dir], 'model', before)
+    train = {d: torch.load(d / 'ckpt_2_train.pth') for d in (ref_dir, tp_dir)}
+    _assert_close_1x2(train[tp_dir]['ema'], train[ref_dir]['ema'], 'ema')
+    for kind in ('exp_avg', 'exp_avg_sq'):
+        moments = {d: {i: st[kind] for i, st in
+                       train[d]['optimizer']['state'].items()}
+                   for d in (ref_dir, tp_dir)}
+        _assert_close_1x2(moments[tp_dir], moments[ref_dir], kind)
+    assert train[tp_dir]['step'] == 2
+
+    third = {}
+    for d in (ref_dir, tp_dir):
+        (out,) = run_two(tmp_path, 'train_cli', *argv(
+            d, '1,1', 3, '--resume-from', str(d / 'ckpt_2.pth')), world=1)
+        assert out['steps'] == 1
+        third[d] = torch.load(d / 'ckpt_3.pth')['state_dict']
+    _assert_close_1x2(third[tp_dir], third[ref_dir], 'resumed',
+                      load[ref_dir])
     shutil.rmtree(tmp_path)
 
 

@@ -60,7 +60,9 @@ def test_port_imports_no_jax():
                  'tools.dataset_converters.rtgene.convert',
                  'tools.dataset_converters.mpeblink_build_raw_frames_dataset',
                  *(f'tools.{m}' for m in NO_CV2_TOOLS),
-                 *(f'utils.{m}' for m in NO_CV2_UTILS), 'ops.routing'):
+                 *(f'utils.{m}' for m in NO_CV2_UTILS), 'ops.routing',
+                 'parallel.distributed', 'parallel.mesh',
+                 'parallel.tensor_parallel'):
         assert f'mcgaze_tpu_torch.{name}' in walked, name
 
 
@@ -70,7 +72,8 @@ def test_port_imports_no_jax():
 NO_CV2_TOOLS = tuple(f'analysis_tools.{m}' for m in (
     'npy_frames', 'crop_sensitivity', 'instblink_burnin', 'analyze_logs',
     'benchmark', 'dedup_bench', 'backbone_bench', 'step_breakdown',
-    'get_flops', 'train_bench', 'serve_bench', 'visualize_results')) + (
+    'get_flops', 'train_bench', 'serve_bench', 'visualize_results',
+    'roi_kernel_check')) + (
     'misc.print_config', 'misc.browse_dataset', 'train')
 NO_CV2_UTILS = ('collect_env', 'benchmarking', 'profiling')
 

@@ -18,6 +18,8 @@ against the JAX package's where both compute the same thing:
   * every tool that drives the model runs at a tiny size with --device
     cpu and prints lines that parse (benchmark also on .npy frames, as the
     card's machine runs it), and refuses --device cuda without a card;
+  * roi_kernel_check: the JAX tool's inputs bit for bit, its four cases a
+    shape at small shapes on the CPU, a breach reported and exit 1;
   * tools/train.py --profile-dir leaves a trace; the six shell wrappers.
 
 Every file a test writes is removed at its end.
@@ -49,7 +51,9 @@ from mcgaze_tpu_torch.tools import kernel_bounds
 from mcgaze_tpu_torch.tools.analysis_tools import (analyze_logs,
                                                    backbone_bench, benchmark,
                                                    dedup_bench, get_flops,
-                                                   npy_frames, serve_bench,
+                                                   npy_frames,
+                                                   roi_kernel_check,
+                                                   serve_bench,
                                                    step_breakdown,
                                                    train_bench,
                                                    visualize_results)
@@ -648,14 +652,55 @@ def test_serve_bench_engine(monkeypatch):
         assert row['launches'] >= 1
 
 
+def test_roi_kernel_check_cases_equal_jax_tool():
+    """The port's make_case on its SHAPES returns the JAX tool's arrays bit
+    for bit from the same RandomState(0) stream (the JAX tool imports JAX
+    only in main)."""
+    jtool = jax_tool('analysis_tools/roi_kernel_check.py')
+    assert 'jax' not in jtool.__dict__
+    ours, theirs = np.random.RandomState(0), np.random.RandomState(0)
+    assert [s[0] for s in roi_kernel_check.SHAPES] == ['gaze', 'instblink']
+    for _, n, r, sizes, c in roi_kernel_check.SHAPES:
+        a = roi_kernel_check.make_case(ours, np, n, r, sizes, c)
+        b = jtool.make_case(theirs, np, n, r, list(sizes), c)
+        assert [x.shape for x in a[0]] == [(n, h, w, c) for h, w in sizes]
+        for x, y in zip((*a[0], a[1], a[2]), (*b[0], b[1], b[2])):
+            assert x.dtype == y.dtype and np.array_equal(x, y)
+        del a, b
+
+
+def test_roi_kernel_check_runs_and_fails_a_breach(monkeypatch):
+    """At small shapes on the CPU (the eager route is the plain version,
+    the operator route the operators' CPU kernels, K3's the transpose
+    written out): four cases a shape, every one inside --tol; a call 1%
+    off (its forward, and so its gradient) is reported and exits 1."""
+    monkeypatch.setattr(roi_kernel_check, 'SHAPES', (
+        ('gaze', 2, 3, ((16, 16), (8, 8), (4, 4), (2, 2)), 8),
+        ('instblink', 2, 10, ((24, 40), (12, 20), (6, 10), (3, 5)), 8)))
+    ret, text = run_main(roi_kernel_check.main, ['--device', 'cpu'])
+    lines = json_lines(text)
+    assert ret == 0 and 'passed on cpu' in text
+    assert [(x['shape'], x['case']) for x in lines] == [
+        (s, f'{d}_{r}') for s in ('gaze', 'instblink')
+        for r in ('eager', 'operator') for d in ('fwd', 'bwd')]
+    assert all(x['ok'] and x['rel'] <= 1e-4 for x in lines)
+    plain = roi_align_cuda.roi_align_fpn
+    monkeypatch.setattr(roi_align_cuda, 'roi_align_fpn',
+                        lambda *a, **k: plain(*a, **k) * 1.01)
+    ret, text = run_main(roi_kernel_check.main, ['--device', 'cpu'])
+    assert ret == 1 and 'FAILED: 8 case(s) over tol=0.0001' in text
+    assert [round(x['rel'], 4) for x in json_lines(text)] == [0.01] * 8
+
+
 @pytest.mark.parametrize('tool', [
     'benchmark', 'dedup_bench', 'backbone_bench', 'step_breakdown',
-    'get_flops', 'train_bench', 'serve_bench', 'train'])
+    'get_flops', 'train_bench', 'serve_bench', 'train', 'roi_kernel_check'])
 def test_tools_refuse_cuda_without_card(tool):
     if torch.cuda.is_available():
         pytest.skip('a card is present')
     from mcgaze_tpu_torch.tools import train
-    mains = dict(benchmark=(benchmark.main, [GAZE360, '--synthetic']),
+    mains = dict(roi_kernel_check=(roi_kernel_check.main, []),
+                 benchmark=(benchmark.main, [GAZE360, '--synthetic']),
                  dedup_bench=(dedup_bench.main, []),
                  backbone_bench=(backbone_bench.main, []),
                  step_breakdown=(step_breakdown.main, []),

@@ -635,9 +635,9 @@ def test_train_cli_checkpoint_reloads(tmp_path):
 @pytest.mark.parametrize('flag', ['--validate', '--mesh=2,1'])
 def test_train_cli_unported_flags_raise(flag, tmp_path):
     """Both flags are ported now; what still raises before the first step:
-    --validate reads its val JSON (a missing one raises), --mesh D,1 needs
-    D processes (one runs here), and a model axis (--mesh 1,2) is not
-    ported (ROADMAP item 12b)."""
+    --validate reads its val JSON (a missing one raises), and --mesh D,M
+    needs D x M processes (one runs here), for a data axis (2,1) and a
+    model axis (1,2) alike."""
     from mcgaze_tpu_torch.tools.train import main
     argv = [GAZE_CFG, '--synthetic', '--device', 'cpu', '--work-dir',
             str(tmp_path), flag]
@@ -647,7 +647,7 @@ def test_train_cli_unported_flags_raise(flag, tmp_path):
     else:
         with pytest.raises(ValueError, match='needs 2 processes'):
             main(argv)
-        with pytest.raises(NotImplementedError, match='item 12b'):
+        with pytest.raises(ValueError, match='needs 2 processes'):
             main(argv[:-1] + ['--mesh=1,2'])
 
 
