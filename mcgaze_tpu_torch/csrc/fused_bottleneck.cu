@@ -20,8 +20,9 @@
 // f32 bias; with an identity it rounds that to the dtype, adds the identity
 // (x, or the downsample's rounded output) as the JAX block does in the
 // dtype; ReLU where asked; then one rounding to the dtype. Products
-// accumulate in f32: bf16 on the tensor cores (wgmma), f32 by FMA (no TF32,
-// so it holds the plain version with TF32 off).
+// accumulate in f32 on the tensor cores (wgmma): bf16 as it is, f32 in
+// three TF32 passes (3xTF32, below), which hold the plain version with TF32
+// off to f32 rounding.
 //
 // What bounds it on the card. The whole chain is ~747 GFLOP at the gaze
 // eval shape (131 frames at 224 px, bf16): 0.755 ms at the bf16 peak, if
@@ -65,6 +66,51 @@
 //     the result, and the slab's rows go out in 16-byte coalesced stores,
 //     masked past the last row.
 //
+// The f32 design (3xTF32). The tensor cores take f32 only as TF32 (10
+// mantissa bits), ~1e-3 relative a product, which the plain version with
+// TF32 off does not allow. So each operand v splits into hi = v rounded to
+// the nearest TF32 (cvt.rna, its low 13 mantissa bits zero: the hardware
+// truncates what it reads, so hi must already be exact) and lo = v - hi
+// (exact in f32), and every K step adds lo_a*hi_b + hi_a*lo_b + hi_a*hi_b
+// (wgmma m64nBNk8 .tf32); the dropped lo_a*lo_b and lo's own truncation
+// leave ~2^-21 of a product.
+//   * wgmma reads TF32 operands K-major only (the transpose bits are for
+//     16-bit types). The activations are K-major as they lie (channels
+//     contiguous), for the 3x3 too through the im2col map. The folded
+//     weights (K, Cout) are not: the wrapper hands this body the (2, Cout,
+//     K) pair (hi, lo) that ops/fused_bottleneck.py::tf32_split makes from
+//     them on every call, hi already TF32-exact, one TMA map over its 2
+//     Cout rows, each stage taking a BN x 32 box of hi and one of lo.
+//   * The activations split in registers: each consumer thread reads its
+//     A fragment (rows g, g + 8 and K columns q, q + 4 of each 8-wide K
+//     step of its warp's 16 rows) from the swizzled stage with plain
+//     shared loads, splits it, and issues the three products with A from
+//     registers and B (hi or lo) from shared memory by descriptor. No
+//     second copy of A sits in shared memory.
+//   * The tensor cores' own f32 accumulation truncates: summed over K =
+//     2,304 in one accumulator the chains read up to 2.3e-5 of max|out|
+//     from float64 (cuBLAS's f32: 4e-7). So each stage (K = 32, twelve
+//     products) sums into a fresh partial accumulator that is added to
+//     the tile's f32 accumulator with ordinary adds once the stage has
+//     retired: 0.65-1.0e-6, for ~9% of the time (PR 16's probes on an
+//     H100). Within a stage one wgmma group (three products) a K step of 8
+//     stays in flight while the next step's fragment is read and split.
+//   * 128 x BN tiles only, BN = 128 where Cout allows it, else 64; four
+//     stages of 48 KB (six of 32 KB at BN = 64); the ring, the producer
+//     thread and the persistent grid are the bf16 body's. 256-row tiles
+//     made ptxas serialize the wgmmas (C7512, too few registers for 128
+//     accumulators and two steps' fragments) and ran slower.
+//   * The epilogue stores each accumulator pair as 8 bytes straight from
+//     the fragment (four lanes fill one 32-byte sector of a row): f32 needs
+//     no staging slab. A row's identity loads all issue before its first
+//     store (one after another, they cost the identity convolutions 3x
+//     their bytes' time).
+// What bounds it: 3 TF32 passes at 495 TFLOP/s, 165 TFLOP/s of f32
+// products: 4.53 ms for the four chains at the eval shape, 5.58 ms taken
+// launch by launch (kernel_bounds, key float32_3xtf32; layer1's N = 64
+// convolutions are bound by bytes). The split weights double B's bytes
+// from L2.
+//
 // Constraints the wrapper checks: Cin a multiple of 64 (the K step, so a K
 // tile never straddles two 3x3 taps), Cout a multiple of 64 (the smallest N
 // tile), 16-byte aligned contiguous tensors (TMA's rule too), fewer than
@@ -88,27 +134,6 @@ struct Conv {
   void* out;          // (m, cout)
   int m, h, w, cin, cout, ksize, relu;
 };
-
-// The input channels [k, k + vector) of implicit-GEMM row `row`, or null
-// past the last row and where the 3x3 reads the zero padding.
-template <typename T>
-__device__ __forceinline__ const T* a_src(const Conv& p, int row, int k) {
-  if (row >= p.m) return nullptr;
-  const T* x = static_cast<const T*>(p.x);
-  if (p.ksize == 1) return x + static_cast<int64_t>(row) * p.cin + k;
-  const int tap = k / p.cin;  // dy * 3 + dx
-  const int c = k - tap * p.cin;
-  const int dy = tap / 3;
-  const int dx = tap - 3 * dy;
-  const int hw = p.h * p.w;
-  const int frame = row / hw;
-  const int pix = row - frame * hw;
-  const int py = pix / p.w;
-  const int sy = py + dy - 1;
-  const int sx = pix - py * p.w + dx - 1;
-  if (sy < 0 || sy >= p.h || sx < 0 || sx >= p.w) return nullptr;
-  return x + (static_cast<int64_t>(frame) * hw + sy * p.w + sx) * p.cin + c;
-}
 
 __device__ __forceinline__ float round_to(float v, bf16*) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -270,6 +295,47 @@ __device__ __forceinline__ void wgmma<128>(float* d, uint64_t da,
       : MCG_ACC8(0), MCG_ACC8(8), MCG_ACC8(16), MCG_ACC8(24), MCG_ACC8(32),
         MCG_ACC8(40), MCG_ACC8(48), MCG_ACC8(56)
       : "l"(da), "l"(db), "r"(1));
+}
+
+// d = (add ? d : 0) + A (64 x 8 TF32 from registers, a[0..3] the
+// fragment) * B (8 x BN, K-major in shared memory), one warpgroup.
+template <int BN>
+__device__ __forceinline__ void wgmma_tf32(float* d, const uint32_t* a,
+                                           uint64_t db, int add);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<64>(float* d, const uint32_t* a,
+                                               uint64_t db, int add) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %37, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n\t}"
+      : MCG_ACC8(0), MCG_ACC8(8), MCG_ACC8(16), MCG_ACC8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(add));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<128>(float* d, const uint32_t* a,
+                                                uint64_t db, int add) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %69, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n\t}"
+      : MCG_ACC8(0), MCG_ACC8(8), MCG_ACC8(16), MCG_ACC8(24), MCG_ACC8(32),
+        MCG_ACC8(40), MCG_ACC8(48), MCG_ACC8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(add));
 }
 
 #undef MCG_ACC8
@@ -472,86 +538,182 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// ------------------------------------------------------------ f32, by FMA
+// ------------------------------------------------- f32: 3xTF32 on wgmma
 
-constexpr int kFM = 64;  // rows of a block tile
-constexpr int kFN = 64;  // output channels of a block tile
-constexpr int kFK = 16;  // K step
-constexpr int kFThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
+constexpr int kBK32 = 32;  // K step: 32 f32 = one 128-byte row
 
-__global__ void __launch_bounds__(kFThreads) conv_gemm_f32(Conv p) {
-  __shared__ __align__(16) float sa[kFK][kFM + 4];  // A tile, K-major
-  __shared__ __align__(16) float sb[kFK][kFN];
+// A 128 x BN tile: A (128 rows) and the weights' hi and lo (BN rows each)
+// of one K step a stage, all K-major in the 128-byte swizzle.
+template <int BN, int STAGES>
+struct Tile32 {
+  static constexpr int kBM = 128;
+  static constexpr int kABytes = kBM * kRowBytes;
+  static constexpr int kBBytes = BN * kRowBytes;        // hi, and again lo
+  static constexpr int kStage = kABytes + 2 * kBBytes;  // multiple of 1 KB
+  static constexpr int kBars = 2 * STAGES * 8;
+  static constexpr int kSmem = 1024 + STAGES * kStage + kBars;
+};
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int m0 = blockIdx.x * kFM;
-  const int n0 = blockIdx.y * kFN;
-  const int kdim = p.ksize * p.ksize * p.cin;
-  const float* a = static_cast<const float*>(p.a);
+// v = hi + lo: hi the nearest TF32 (ties away from zero, low 13 mantissa
+// bits zero), lo the exact f32 remainder (the tensor cores read its top
+// 10 mantissa bits).
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(v));
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+template <int BN, int STAGES>
+__global__ void __launch_bounds__(kThreads, 1)
+    conv_gemm_tf32x3(const __grid_constant__ CUtensorMap tm_x,
+                     const __grid_constant__ CUtensorMap tm_b, Conv p) {
+  using T = Tile32<BN, STAGES>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * T::kStage);
+  uint64_t* empty = full + STAGES;
+
+  const bool im2col = p.ksize == 3;
+  const int n_tiles = p.cout / BN;
+  const int tiles = (p.m + T::kBM - 1) / T::kBM * n_tiles;
+  const int k_steps = p.ksize * p.ksize * p.cin / kBK32;
+  const int wg = threadIdx.x / 128;
+  const int t = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);  // the TMA thread's arrive
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  __syncthreads();
 
-  for (int k0 = 0; k0 < kdim; k0 += kFK) {
-    {  // A: kFM rows x kFK channels, one 16-byte chunk per thread
-      const int r = tid / (kFK / 4);
-      const int c = (tid % (kFK / 4)) * 4;
-      const float* src = a_src<float>(p, m0 + r, k0 + c);
-      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (src) v = *reinterpret_cast<const float4*>(src);
-      sa[c][r] = v.x;
-      sa[c + 1][r] = v.y;
-      sa[c + 2][r] = v.z;
-      sa[c + 3][r] = v.w;
-    }
-    {  // B: kFK rows x kFN columns
-      const int r = tid / (kFN / 4);
-      const int c = (tid % (kFN / 4)) * 4;
-      *reinterpret_cast<float4*>(&sb[r][c]) = *reinterpret_cast<const float4*>(
-          a + static_cast<int64_t>(k0 + r) * p.cout + n0 + c);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kFK; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&sa[kk][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&sb[kk][tx * 4]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+  if (wg == 2) {
+    // ------------------------------------------------------------ producer
+    if (t != 0) return;
+    const int kpt = p.cin / kBK32;  // K steps per 3x3 tap
+    int s = 0;
+    uint32_t phase = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = tile / n_tiles * T::kBM;
+      const int n0 = tile % n_tiles * BN;
+      const int frame = im2col ? m0 / (p.h * p.w) : 0;
+      const int y0 = im2col ? m0 % (p.h * p.w) / p.w - 1 : 0;
+      const int x0 = im2col ? m0 % p.w - 1 : 0;
+      for (int kt = 0; kt < k_steps; ++kt) {
+        mbar_wait(&empty[s], phase ^ 1);
+        unsigned char* st = ring + s * T::kStage;
+        mbar_expect_tx(&full[s], T::kABytes + 2 * T::kBBytes);
+        if (im2col) {
+          const int tap = kt / kpt;
+          tma_load_im2col(st, &tm_x, &full[s], (kt - tap * kpt) * kBK32, x0,
+                          y0, frame, tap % 3, tap / 3);
+        } else {
+          tma_load(st, &tm_x, &full[s], kt * kBK32, m0);
+        }
+        // rows [0, cout) of the weights' map are hi, [cout, 2 cout) lo
+        tma_load(st + T::kABytes, &tm_b, &full[s], kt * kBK32, n0);
+        tma_load(st + T::kABytes + T::kBBytes, &tm_b, &full[s], kt * kBK32,
+                 p.cout + n0);
+        if (++s == STAGES) {
+          s = 0;
+          phase ^= 1;
+        }
       }
     }
-    __syncthreads();
+    return;
   }
 
-  const float* idn = static_cast<const float*>(p.idn);
-  float* out = static_cast<float*>(p.out);
-  const int col = n0 + tx * 4;
-  const float4 bias = *reinterpret_cast<const float4*>(p.bias + col);
-  const float bs[4] = {bias.x, bias.y, bias.z, bias.w};
+  // -------------------------------------------------------------- consumers
+  const int warp = t / 32;
+  const int lane = t % 32;
+  const int g = lane / 4;  // the fragment's rows g and g + 8 of the warp's
+  const int q = lane % 4;  // 16; its K columns q and q + 4 of each step
+  const int frag_row = wg * 64 + warp * 16 + g;  // of the tile
+  const int frag_col = q * 2;  // accumulator columns, + 8j
+  const float* __restrict__ idn = static_cast<const float*>(p.idn);
+  const float* __restrict__ bias = p.bias;
+  float* __restrict__ out = static_cast<float*>(p.out);
+  int s = 0;
+  uint32_t phase = 0;
+  float acc[BN / 2];
+  float part[BN / 2];
+
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = tile / n_tiles * T::kBM;
+    const int n0 = tile % n_tiles * BN;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty * 4 + i;
-    if (row >= p.m) continue;
-    const int64_t off = static_cast<int64_t>(row) * p.cout + col;
-    float4 iv = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (idn) iv = *reinterpret_cast<const float4*>(idn + off);
-    const float id[4] = {iv.x, iv.y, iv.z, iv.w};
-    float o[4];
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+    for (int kt = 0; kt < k_steps; ++kt) {
+      mbar_wait(&full[s], phase);
+      unsigned char* st = ring + s * T::kStage;
+      const float* row = reinterpret_cast<const float*>(st) + frag_row * 32;
+      const uint32_t b_hi = smem_u32(st + T::kABytes);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      o[j] = finish<float>(acc[i][j], bs[j], idn != nullptr, id[j], p.relu);
+      for (int kk = 0; kk < kBK32 / 8; ++kk) {
+        // the fragment from the swizzled rows: 16-byte chunk j of row r
+        // sits at chunk j ^ (r % 8), and r % 8 == g for both rows here
+        const int c0 = ((2 * kk) ^ g) * 4 + q;
+        const int c1 = ((2 * kk + 1) ^ g) * 4 + q;
+        uint32_t hi[4], lo[4];
+        split_tf32(row[c0], hi[0], lo[0]);
+        split_tf32(row[8 * 32 + c0], hi[1], lo[1]);
+        split_tf32(row[c1], hi[2], lo[2]);
+        split_tf32(row[8 * 32 + c1], hi[3], lo[3]);
+        // B: +32 bytes per 8 K inside the swizzled rows, as A's in bf16
+        const uint64_t dh = sw128_desc(b_hi + kk * 32, 16, 1024);
+        const uint64_t dl = sw128_desc(b_hi + T::kBBytes + kk * 32, 16, 1024);
+        // the stage's products into `part`, overwritten by its first
+        fence_acc<BN / 2>(part);
+        asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+        wgmma_tf32<BN>(part, lo, dh, kk > 0);
+        wgmma_tf32<BN>(part, hi, dl, 1);
+        wgmma_tf32<BN>(part, hi, dh, 1);
+        asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+        fence_acc<BN / 2>(part);
+      }
+      // the stage has retired: its slot back to the producer, its partial
+      // sum into the tile's with f32 adds
+      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+      fence_acc<BN / 2>(part);
+      if (lane == 0) mbar_arrive(&empty[s]);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
+      if (++s == STAGES) {
+        s = 0;
+        phase ^= 1;
+      }
     }
-    *reinterpret_cast<float4*>(out + off) =
-        make_float4(o[0], o[1], o[2], o[3]);
+
+    // epilogue straight from the fragments: bias, identity, ReLU; 8 bytes
+    // a thread, four lanes to one 32-byte sector of a row. A row's
+    // identity loads all issue before its first store.
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = m0 + frag_row + 8 * h;
+      if (r >= p.m) continue;
+      const int64_t base = static_cast<int64_t>(r) * p.cout + n0 + frag_col;
+      float2 id[BN / 8];
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        id[j] = idn ? __ldg(reinterpret_cast<const float2*>(idn + base +
+                                                            j * 8))
+                    : make_float2(0.0f, 0.0f);
+      }
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const float2 b = __ldg(
+            reinterpret_cast<const float2*>(bias + n0 + j * 8 + frag_col));
+        *reinterpret_cast<float2*>(out + base + j * 8) = make_float2(
+            finish<float>(acc[4 * j + 2 * h], b.x, idn != nullptr, id[j].x,
+                          p.relu),
+            finish<float>(acc[4 * j + 2 * h + 1], b.y, idn != nullptr,
+                          id[j].y, p.relu));
+      }
+    }
   }
 }
 
@@ -585,19 +747,27 @@ void* driver_fn(const char* name) {
   return found == cudaDriverEntryPointSuccess ? sym : nullptr;
 }
 
-// A bf16 (rows, cols) row-major matrix as a TMA map of box_rows x 64
-// boxes in the 128-byte swizzle; reads past the last row give zeros.
+// The map's element type: bf16 (itemsize 2) or f32 (4).
+CUtensorMapDataType map_type(int itemsize) {
+  return itemsize == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+}
+
+// A (rows, cols) row-major matrix of bf16 or f32 as a TMA map of box_rows
+// x 128-byte boxes in the 128-byte swizzle; reads past the last row give
+// zeros.
 bool encode(CUtensorMap* map, const void* base, int cols, int rows,
-            int box_rows) {
+            int box_rows, int itemsize) {
   static const auto enc =
       reinterpret_cast<EncodeTiled>(driver_fn("cuTensorMapEncodeTiled"));
   if (enc == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * itemsize};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kRowBytes / itemsize),
+                             static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+  return enc(map, map_type(itemsize), 2,
              const_cast<void*>(base), dims, strides, box, elem,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -606,21 +776,21 @@ bool encode(CUtensorMap* map, const void* base, int cols, int rows,
 
 // The 3x3's operand: the (m / (h w), h, w, cin) activations as an im2col
 // map whose walk over each frame starts one pixel before it on both axes
-// and ends one pixel before its last (pad 1, 3 taps), `rows` pixels x 64
-// channels per box in the 128-byte swizzle; the taps' reads outside the
-// frame give the zero padding.
-bool encode_im2col(CUtensorMap* map, const Conv& p, int rows) {
+// and ends one pixel before its last (pad 1, 3 taps), `rows` pixels x
+// 128 bytes of channels per box in the 128-byte swizzle; the taps' reads
+// outside the frame give the zero padding.
+bool encode_im2col(CUtensorMap* map, const Conv& p, int rows, int itemsize) {
   static const auto enc =
       reinterpret_cast<EncodeIm2col>(driver_fn("cuTensorMapEncodeIm2col"));
   if (enc == nullptr) return false;
-  const cuuint64_t c = p.cin, w = p.w, h = p.h;
+  const cuuint64_t c = p.cin, w = p.w, h = p.h, e = itemsize;
   const cuuint64_t dims[4] = {c, w, h, static_cast<cuuint64_t>(p.m) / (h * w)};
-  const cuuint64_t strides[3] = {c * 2, w * c * 2, h * w * c * 2};
+  const cuuint64_t strides[3] = {c * e, w * c * e, h * w * c * e};
   const int lower[2] = {-1, -1};
   const int upper[2] = {-1, -1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-             const_cast<void*>(p.x), dims, strides, lower, upper, 64,
+  return enc(map, map_type(itemsize), 4, const_cast<void*>(p.x), dims,
+             strides, lower, upper, kRowBytes / itemsize,
              static_cast<cuuint32_t>(rows), elem,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -631,9 +801,9 @@ template <int BN, int MT, int STAGES>
 cudaError_t launch_bf16(const Conv& p, cudaStream_t st, int sms) {
   using T = Tile<BN, MT, STAGES>;
   CUtensorMap tm_x{}, tm_a{};
-  if (!(p.ksize == 3 ? encode_im2col(&tm_x, p, T::kBM)
-                     : encode(&tm_x, p.x, p.cin, p.m, T::kBM)) ||
-      !encode(&tm_a, p.a, p.cout, p.ksize * p.ksize * p.cin, kBK)) {
+  if (!(p.ksize == 3 ? encode_im2col(&tm_x, p, T::kBM, 2)
+                     : encode(&tm_x, p.x, p.cin, p.m, T::kBM, 2)) ||
+      !encode(&tm_a, p.a, p.cout, p.ksize * p.ksize * p.cin, kBK, 2)) {
     return cudaErrorInvalidValue;
   }
   const cudaError_t err = cudaFuncSetAttribute(
@@ -676,6 +846,40 @@ cudaError_t launch_bf16(const Conv& p, cudaStream_t st) {
   return launch_bf16<BN, 1, BN == 128 ? 5 : 6>(p, st, sms);
 }
 
+template <int BN, int STAGES>
+cudaError_t launch_f32(const Conv& p, cudaStream_t st, int sms) {
+  using T = Tile32<BN, STAGES>;
+  CUtensorMap tm_x{}, tm_b{};
+  // p.a: the (2, cout, K) split weights, one (2 cout, K) map
+  if (!(p.ksize == 3 ? encode_im2col(&tm_x, p, T::kBM, 4)
+                     : encode(&tm_x, p.x, p.cin, p.m, T::kBM, 4)) ||
+      !encode(&tm_b, p.a, p.ksize * p.ksize * p.cin, 2 * p.cout, BN, 4)) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      conv_gemm_tf32x3<BN, STAGES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (p.m + T::kBM - 1) / T::kBM * (p.cout / BN);
+  const int grid = tiles < sms ? tiles : sms;
+  conv_gemm_tf32x3<BN, STAGES><<<grid, kThreads, T::kSmem, st>>>(tm_x, tm_b,
+                                                                  p);
+  return cudaGetLastError();
+}
+
+// 128 x BN tiles, a persistent grid of one block an SM. Four stages of 48
+// KB at BN = 128, six of 32 KB at 64.
+template <int BN>
+cudaError_t launch_f32(const Conv& p, cudaStream_t st) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err != cudaSuccess) return err;
+  return launch_f32<BN, BN == 128 ? 4 : 6>(p, st, sms);
+}
+
 }  // namespace
 
 extern "C" {
@@ -685,8 +889,10 @@ const char* mcg_cuda_error_string(int err) {
 }
 
 // One convolution of the chain on `stream`. dtype: 0 = float32, 1 =
-// bfloat16 (x, a, idn and out; bias is always f32). ksize 1 or 3; idn may
-// be NULL. Returns the cudaError_t of the launch.
+// bfloat16 (x, idn and out; bias is always f32). a: bf16, the folded
+// (K, cout) weights; float32, their (2, cout, K) split into TF32 hi and
+// lo (tf32_split). ksize 1 or 3; idn may be NULL. Returns the cudaError_t
+// of the launch.
 int mcg_conv_gemm(const void* x, const void* a, const float* bias,
                   const void* idn, void* out, int m, int h, int w, int cin,
                   int cout, int ksize, int relu, int dtype, void* stream) {
@@ -703,9 +909,8 @@ int mcg_conv_gemm(const void* x, const void* a, const float* bias,
                                             : launch_bf16<64>(p, st));
   }
   if (dtype == 0) {
-    const dim3 grid((m + kFM - 1) / kFM, cout / kFN);
-    conv_gemm_f32<<<grid, kFThreads, 0, st>>>(p);
-    return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(cout % 128 == 0 ? launch_f32<128>(p, st)
+                                            : launch_f32<64>(p, st));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -16,8 +16,9 @@ mcgaze_tpu/ops/fused_bottleneck.py.
     the residual adds in the dtype.
   * `launch_fused_bottleneck_chain` runs the chain on the card through the
     hand-written kernel csrc/fused_bottleneck.cu: one implicit-GEMM launch
-    per convolution, with bias, identity and ReLU in its epilogue (bf16:
-    wgmma fed through a ring of TMA and cp.async copies; f32: FMA).
+    per convolution, with bias, identity and ReLU in its epilogue, wgmma
+    fed through a ring of TMA copies (bf16 as it is; f32 in three TF32
+    passes on the weights' `tf32_split`, made here on every call).
     `launch_count` counts those launches.
   * `FusedBottleneckChainFunction`: the kernel forward; the backward is
     autograd of `chain_reference` (the JAX `_chain_bwd`; the JAX package
@@ -100,6 +101,23 @@ def split_blocks(weights) -> list:
         blocks.append(tuple(blk))
         i += 8 if down else 6
     return blocks
+
+
+def tf32_split(a: torch.Tensor) -> torch.Tensor:
+    """A folded f32 weight (K, Cout) -> (2, Cout, K): [0] hi, a rounded
+    to the nearest TF32 (10 mantissa bits, ties away from zero, as
+    cvt.rna), its low 13 mantissa bits zero; [1] lo = a - hi, exact in
+    f32. K-major, as the tensor cores take TF32 operands: the kernel's f32
+    body reads both (csrc/fused_bottleneck.cu)."""
+    s = a.new_empty((2, a.shape[1], a.shape[0]))
+    hi, lo = s[0], s[1]
+    bits = hi.view(torch.int32)
+    # three passes (each a launch on the card): transpose and add half a
+    # TF32 step to the magnitude's bits, clear the 13 low bits, subtract
+    torch.add(a.view(torch.int32).t(), 0x1000, out=bits)
+    bits.bitwise_and_(-0x2000)
+    torch.sub(a.t(), hi, out=lo)
+    return s
 
 
 def _mm(x, a, b):
@@ -205,12 +223,14 @@ def _signature(lib):
 
 
 def _conv(fn, lib, x, a, b, idn, out, h, w, ksize, relu):
+    """One launch: out = epilogue(x (*) a) with a the folded (K, Cout)
+    weight in bf16, or its tf32_split in f32."""
     global launch_count
     m, cin = x.shape
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.data_ptr(), a.data_ptr(), b.data_ptr(),
              None if idn is None else idn.data_ptr(), out.data_ptr(),
-             m, h, w, cin, a.shape[1], ksize, int(relu), _DTYPES[x.dtype],
+             m, h, w, cin, out.shape[1], ksize, int(relu), _DTYPES[x.dtype],
              stream)
     _native.check(lib, err, 'fused_bottleneck conv kernel launch')
     launch_count += 1
@@ -275,7 +295,8 @@ def _check(what, x, weights, h, w):
 def launch_fused_bottleneck_chain(x: torch.Tensor, weights, h: int, w: int
                                   ) -> torch.Tensor:
     """The chain on the card: x (N, H*W, C) contiguous CUDA rows, the
-    folded weights in x's dtype with f32 biases. One kernel launch per
+    folded weights in x's dtype with f32 biases (in f32 each goes to the
+    kernel as its tf32_split, made here). One kernel launch per
     convolution on the current stream (3 per block, 4 with a downsample),
     each output allocated here; no synchronisation. It builds no autograd
     graph, so it refuses inputs that need a gradient while grad mode is
@@ -292,8 +313,14 @@ def launch_fused_bottleneck_chain(x: torch.Tensor, weights, h: int, w: int
     fn = _signature(lib)
     y = x.reshape(n * h * w, x.shape[2])
     with torch.cuda.device(x.device):
-        for a1, b1, a2, b2, a3, b3, ad, bd in blocks:
-            mid, cout = a1.shape[1], a3.shape[1]
+        for blk in blocks:
+            mid, cout = blk[0].shape[1], blk[4].shape[1]
+            if x.dtype == torch.float32:
+                # the f32 body reads each A (even places) as its
+                # tf32_split; the biases stay
+                blk = [t if k % 2 or t is None else tf32_split(t)
+                       for k, t in enumerate(blk)]
+            a1, b1, a2, b2, a3, b3, ad, bd = blk
             y1 = _conv(fn, lib, y, a1, b1, None, y.new_empty(len(y), mid),
                        h, w, 1, True)
             y2 = _conv(fn, lib, y1, a2, b2, None, y.new_empty(len(y), mid),

@@ -24,8 +24,11 @@ runs: each convolution's input, output and identity through device
 memory. The peak is that of the type the kernel
 computes in (NVIDIA's data sheet, dense, at 700 W): K4 computes in f32
 outside the tensor cores on both paths (the head casts its query to f32),
-67 TFLOP/s; K5 in bf16 on the tensor cores, 989 TFLOP/s, or in f32 by
-FMA without TF32, 67 TFLOP/s. No card is used.
+67 TFLOP/s; K5 in bf16 on the tensor cores, 989 TFLOP/s, or in f32 as
+three TF32 passes on the tensor cores (3xTF32), 495 / 3 = 165 TFLOP/s of
+f32 products (PEAKS['float32_3xtf32'], K5_PEAK). K5's functions take
+`peak=`, a key of PEAKS: peak='float32' gives the bound of the FMA body
+K5's f32 path ran on before it (67 TFLOP/s). No card is used.
 """
 import json
 
@@ -34,7 +37,9 @@ import numpy as np
 from ..models.resnet import RESNET_SPECS
 
 HBM_BYTES_PER_S = 3.35e12
-PEAKS = dict(bfloat16=989e12, float32=67e12)
+PEAKS = dict(bfloat16=989e12, float32=67e12, float32_3xtf32=495e12 / 3)
+# the peak K5 runs each dtype at
+K5_PEAK = dict(bfloat16='bfloat16', float32='float32_3xtf32')
 ITEMSIZE = dict(bfloat16=2, float32=4)
 
 
@@ -170,27 +175,29 @@ def k5_launches(chain) -> int:
     return len(k5_convs(chain))
 
 
-def k5_bound(frames, chain, dtype):
+def k5_bound(frames, chain, dtype, peak=None):
     """One stage chain over `frames` frames of chain['size'] squared
     pixels (k5_pixels_bound)."""
-    return k5_pixels_bound(frames * chain['size'] ** 2, chain, dtype)
+    return k5_pixels_bound(frames * chain['size'] ** 2, chain, dtype, peak)
 
 
-def k5_pixels_bound(pixels, chain, dtype):
+def k5_pixels_bound(pixels, chain, dtype, peak=None):
     """One stage chain over `pixels` rows: x read once, the output written
     once, the folded weights (A's in the dtype, f32 biases) read once; 2
-    flops per multiply-add of its convolutions."""
+    flops per multiply-add of its convolutions, at PEAKS[peak] (default
+    K5_PEAK[dtype])."""
     itemsize = ITEMSIZE[dtype]
     convs = k5_convs(chain)
     macs = sum(k * k * ci * co for ci, co, k, _ in convs)
     w_bytes = sum(k * k * ci * co * itemsize + co * 4
                   for ci, co, k, _ in convs)
     nbytes = pixels * (chain['cin'] + 4 * chain['mid']) * itemsize + w_bytes
-    return dict(bound(nbytes, 2 * macs * pixels, PEAKS[dtype]),
+    return dict(bound(nbytes, 2 * macs * pixels,
+                      PEAKS[peak or K5_PEAK[dtype]]),
                 launches=len(convs))
 
 
-def k5_conv_bound(pixels, cin, cout, ksize, identity, dtype):
+def k5_conv_bound(pixels, cin, cout, ksize, identity, dtype, peak=None):
     """One launch as the kernel runs it: its input, its folded weights and
     bias and (with `identity`) the identity read once, its output written
     once, over `pixels` rows."""
@@ -198,15 +205,15 @@ def k5_conv_bound(pixels, cin, cout, ksize, identity, dtype):
     k = ksize * ksize * cin
     nbytes = (pixels * (cin + cout * (2 if identity else 1)) * itemsize
               + k * cout * itemsize + cout * 4)
-    return bound(nbytes, 2 * pixels * k * cout, PEAKS[dtype])
+    return bound(nbytes, 2 * pixels * k * cout, PEAKS[peak or K5_PEAK[dtype]])
 
 
-def k5_launch_floor(frames, chain, dtype):
+def k5_launch_floor(frames, chain, dtype, peak=None):
     """The least time of the chain as the kernel runs it, one launch per
     convolution (k5_conv_bound summed): y1, y2 and the identity go through
     device memory, which k5_bound leaves out."""
     pixels = frames * chain['size'] ** 2
-    per_launch = [k5_conv_bound(pixels, *conv, dtype)
+    per_launch = [k5_conv_bound(pixels, *conv, dtype, peak)
                   for conv in k5_convs(chain)]
     return dict(floor_ms=sum(b['bound_ms'] for b in per_launch),
                 bytes=sum(b['bytes'] for b in per_launch),

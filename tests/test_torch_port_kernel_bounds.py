@@ -85,3 +85,51 @@ def test_launch_floor_never_below_the_bound(dtype, frames):
         assert total == pytest.approx(1.761, abs=1e-3)
         paths = kernel_bounds.path_bounds(131, 32, dtype)['K5']['total']
         assert paths['launch_floor_ms'] == pytest.approx(total)
+
+
+def test_3xtf32_bound_layer4_by_hand():
+    """layer4 at the eval shape (131 frames of 7x7) in float32, counted by
+    hand: per pixel, each of its two blocks makes 2048 x 512 + 9 x 512 x
+    512 + 512 x 2048 multiply-adds, 2 flops each, over 165 TFLOP/s (K5's
+    f32 body: three TF32 passes at 495): 0.693 ms, bound by operations.
+    The FMA body's peak stays under peak='float32' (1.708 ms), and is
+    still K4's peak."""
+    pixels = 131 * 7 * 7
+    macs = 2 * (2048 * 512 + 9 * 512 * 512 + 512 * 2048)
+    layer4 = kernel_bounds.chains(50, 224)[3]
+    got = kernel_bounds.k5_bound(131, layer4, 'float32')
+    assert kernel_bounds.PEAKS['float32_3xtf32'] == 165e12
+    assert kernel_bounds.K5_PEAK['float32'] == 'float32_3xtf32'
+    assert got['flops'] == 2 * macs * pixels
+    assert got['bound_by'] == 'operations'
+    assert got['bound_ms'] == pytest.approx(2 * macs * pixels / 165e12 * 1e3)
+    assert round(got['bound_ms'], 3) == 0.693
+    fma = kernel_bounds.k5_bound(131, layer4, 'float32', peak='float32')
+    assert round(fma['bound_ms'], 3) == 1.708
+    assert kernel_bounds.PEAKS['float32'] == 67e12
+    k4 = kernel_bounds.k4_bound(32)
+    assert k4['bound_ms'] == pytest.approx(max(
+        k4['bytes'] / 3.35e12, k4['flops'] / 67e12) * 1e3)
+
+
+@pytest.mark.parametrize('frames, bound_ms, floor_ms', [
+    (131, 4.528, 5.579),     # the eval shape
+    (224, 7.743, 9.539),     # the train shape, 32 clips
+])
+def test_3xtf32_chains_sum(frames, bound_ms, floor_ms):
+    """The four chains in float32 at 165 TFLOP/s: the chain bound and the
+    per-launch floor summed. layer1's first conv (64 -> 64, a 1x1 over
+    131 x 56 x 56 pixels) is bound by its bytes: 2 x 64 channels of f32 a
+    pixel plus its weight and bias, over 3.35 TB/s."""
+    total = floor = 0.0
+    for chain in kernel_bounds.chains(50, 224):
+        total += kernel_bounds.k5_bound(frames, chain, 'float32')['bound_ms']
+        floor += kernel_bounds.k5_launch_floor(frames, chain,
+                                               'float32')['floor_ms']
+    assert round(total, 3) == bound_ms
+    assert round(floor, 3) == floor_ms
+    pixels = frames * 56 * 56
+    conv1 = kernel_bounds.k5_conv_bound(pixels, 64, 64, 1, False, 'float32')
+    nbytes = pixels * 128 * 4 + 64 * 64 * 4 + 64 * 4
+    assert conv1['bytes'] == nbytes and conv1['bound_by'] == 'bytes'
+    assert conv1['bound_ms'] == pytest.approx(nbytes / 3.35e12 * 1e3)

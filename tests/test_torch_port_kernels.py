@@ -19,8 +19,9 @@ The inverse slot map K3 reads and K4's cluster plan are plain Python and
 run on the CPU as well.
 
 K5 (fused bottleneck chain) is held against `chain_reference` at 1e-4 of
-the plain output's largest value in f32 (K up to 9*256 summed in another
-order through up to two blocks) and 2e-2 of it in bf16, where the
+the plain output's largest value in f32 (K up to 9*512 summed in another
+order through up to two blocks, three TF32 products a term on the tensor
+cores) and 2e-2 of it in bf16, where the
 tensor cores also sum K in another order; its Function's
 gradients against autograd of `chain_reference` at 1e-4 of each
 gradient's largest value. K4 (fused STQI attention, f32 only) is held
@@ -34,7 +35,7 @@ import torch
 from mcgaze_tpu_torch.models.heads import STQIHead
 from mcgaze_tpu_torch.models.layers import init_weights
 from mcgaze_tpu_torch.models.resnet import Bottleneck
-from mcgaze_tpu_torch.ops import fused_bottleneck, roi_align_cuda
+from mcgaze_tpu_torch.ops import _native, fused_bottleneck, roi_align_cuda
 from mcgaze_tpu_torch.ops import stqi_attention
 from mcgaze_tpu_torch.ops.roi_align import roi_align_fpn_mm
 
@@ -564,10 +565,11 @@ def test_fused_bottleneck_kernel_matches_plain(cuda_device, dtype):
 ])                               # the ring wraps within and across tiles
 def test_fused_bottleneck_kernel_tilings(cuda_device, dtype, cin, mid,
                                          n_blocks, frames, h, w):
-    """Shapes that reach the bf16 kernel's tiles: a ragged last row tile
-    (every case), a 3x3 on frames narrower than a tile, N=64 and N>=256
-    tiles, a chain whose first block adds x itself, Cin=64 with a
-    downsample, and more row tiles than the card has SMs."""
+    """Shapes that reach the kernel's tiles (its bf16 body, and its f32
+    3xTF32 body): a ragged last row tile (every case), a 3x3 on frames
+    narrower than a tile, N=64 and N>=256 tiles, a chain whose first
+    block adds x itself, Cin=64 with a downsample, and more row tiles
+    than the card has SMs."""
     blocks = [b.to(cuda_device)
               for b in random_blocks(1, cin=cin, mid=mid, n_blocks=n_blocks)]
     x = torch.from_numpy(np.random.RandomState(1).randn(
@@ -586,6 +588,94 @@ def test_fused_bottleneck_kernel_tilings(cuda_device, dtype, cin, mid,
     tol = (1e-4 if dtype == torch.float32 else TOL_BF16) * \
         ref.float().abs().max().item()
     assert err <= tol, (err, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_fused_bottleneck_kernel_layer4_train_shape(cuda_device, dtype):
+    """layer4's chain at the train shape: 224 frames of 7x7 = 10,976 rows,
+    ragged in both row tiles (85 x 128 + 96, 42 x 256 + 224), Cin 2048,
+    N = 512 and 2048, K up to 4,608."""
+    blocks = [b.to(cuda_device)
+              for b in random_blocks(2, cin=2048, mid=512, n_blocks=2)]
+    x = torch.from_numpy(np.maximum(np.random.RandomState(2).randn(
+        224, 49, 2048), 0).astype(np.float32)).to(cuda_device, dtype)
+    with torch.no_grad():
+        weights = [a for b in blocks
+                   for a in fused_bottleneck.fold_block_params(b, dtype)]
+        before = fused_bottleneck.launch_count
+        got = fused_bottleneck.fused_bottleneck_chain(x, weights, 7, 7)
+        torch.cuda.synchronize()
+        ref = fused_bottleneck.chain_reference(x, weights, 7, 7)
+    assert fused_bottleneck.launch_count == before + 6
+    err = (got.float() - ref.float()).abs().max().item()
+    tol = (1e-4 if dtype == torch.float32 else TOL_BF16) * \
+        ref.float().abs().max().item()
+    assert err <= tol, (err, tol)
+
+
+def conv_case(device, dtype, cin, cout, ksize, frames=3, h=7, w=9, seed=7):
+    """One convolution's operands as the C entry takes them: x (m, cin),
+    the folded weight (K, cout) and what the kernel reads of it (bf16 as
+    it is, f32 its tf32_split), the f32 bias (1, cout), an identity (m,
+    cout)."""
+    rng = np.random.RandomState(seed)
+    m, k = frames * h * w, ksize * ksize * cin
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype(
+            np.float32)).to(device)
+
+    x, a = t(m, cin).to(dtype), t(k, cout, scale=k ** -0.5).to(dtype)
+    kernel_a = fused_bottleneck.tf32_split(a) if dtype == torch.float32 \
+        else a
+    return x, a, kernel_a, t(1, cout, scale=0.1), t(m, cout).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('ksize', [1, 3])
+def test_fused_bottleneck_conv_n64_with_identity(cuda_device, dtype, ksize):
+    """One launch at Cout = 64, the narrow N tile, with an identity and
+    ReLU: no ResNet chain makes it (a Bottleneck's identity convolution
+    has Cout = 4 x mid >= 256), and the f32 body's epilogue writes it
+    from the fragments without bf16's staging slab. 3 frames of 7x9, 189
+    rows, against the plain version's rounding points (as
+    chain_reference's last convolution)."""
+    h, w, cin = 7, 9, 128
+    x, a, kernel_a, b, idn = conv_case(cuda_device, dtype, cin, 64, ksize)
+    lib = _native.load('fused_bottleneck')
+    out = x.new_empty(len(x), 64)
+    before = fused_bottleneck.launch_count
+    fused_bottleneck._conv(fused_bottleneck._signature(lib), lib, x,
+                           kernel_a, b, idn, out, h, w, ksize, True)
+    torch.cuda.synchronize()
+    assert fused_bottleneck.launch_count == before + 1
+    cols = x if ksize == 1 else fused_bottleneck.im2col3x3(
+        x.view(-1, h * w, cin), h, w).reshape(len(x), -1)
+    ref = torch.relu(fused_bottleneck._mm(cols, a, b).to(dtype) + idn)
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = (1e-4 if dtype == torch.float32 else TOL_BF16) * \
+        ref.float().abs().max().item()
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('cin, cout', [(32, 64), (64, 96)])
+def test_fused_bottleneck_conv_entry_refuses(cuda_device, dtype, cin, cout):
+    """The C entry's own refusals, in both bodies (the wrapper's _check
+    refuses such chains first): Cin not a multiple of the 64-channel K
+    step, Cout not a multiple of the smallest N tile (64). Nothing
+    launches."""
+    x, _, kernel_a, b, _ = conv_case(cuda_device, dtype, cin, cout, 1)
+    lib = _native.load('fused_bottleneck')
+    before = fused_bottleneck.launch_count
+    with pytest.raises(RuntimeError, match='CUDA error'):
+        fused_bottleneck._conv(fused_bottleneck._signature(lib), lib, x,
+                               kernel_a, b, None, x.new_empty(len(x), cout),
+                               7, 9, 1, True)
+    assert fused_bottleneck.launch_count == before
 
 
 @pytest.mark.cuda
