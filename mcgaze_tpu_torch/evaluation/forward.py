@@ -22,6 +22,7 @@ model made once per card (`ModelReplicas`).
 from __future__ import annotations
 
 import copy
+import functools
 
 import numpy as np
 import torch
@@ -29,6 +30,7 @@ import torch
 from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from ..models.mcgaze import MCGazeModel, ModelConfig, init_model
 from ..utils.env import resolve_device
+from ..utils.profiling import span
 
 
 def device_normalize(imgs: torch.Tensor, whwh: torch.Tensor) -> torch.Tensor:
@@ -89,12 +91,13 @@ def make_eval_forward(model_cfg: ModelConfig, seed: int = 0,
     @torch.inference_mode()
     def fwd_dedup(frames, sel, whwh_u, t):
         m = replicas.on(frames.device)
-        frames = device_normalize(frames, whwh_u)
-        feats = m.extract_features(frames)
+        feats = m.extract_features(frames, functools.partial(
+            device_normalize, whwh=whwh_u))
         sel = sel.to(torch.int32)
         out = m.run_heads(feats, whwh_u[sel.long()], clip_length=t,
                           frame_idx=sel)
-        return _last_stage(out)
+        with span('mcgaze.select'):
+            return _last_stage(out)
 
     return model, fwd, fwd_dedup
 
@@ -135,9 +138,12 @@ def bind_forward(fwd, device, fwd_dedup=None):
     forward.device = device
     if fwd_dedup is not None:
         def dedup(frames, sel, whwh_u, t):
-            dev = run_device(frames, device)
-            return fwd_dedup(to_device(frames, dev), to_device(sel, dev),
-                             to_device(whwh_u, dev), t)
+            with span('mcgaze.eval'):
+                dev = run_device(frames, device)
+                with span('mcgaze.handover'):
+                    args = (to_device(frames, dev), to_device(sel, dev),
+                            to_device(whwh_u, dev))
+                return fwd_dedup(*args, t)
 
         forward.dedup = dedup
     return forward
@@ -163,11 +169,14 @@ def make_query_eval_forward(model, mc):
 
     @torch.inference_mode()
     def fwd_batched(imgs, whwh, kq):
-        imgs = device_normalize(imgs, whwh)
+        m = replicas.on(imgs.device)
         t = imgs.shape[0] // kq
-        out = replicas.on(imgs.device)(imgs, whwh, clip_length=t)
-        return topk_tracks_batched(out['stages'][-1], kq, t,
-                                   mc.max_per_img, mc.num_classes)
+        feats = m.extract_features(imgs, t, normalize=functools.partial(
+            device_normalize, whwh=whwh))
+        out = m.run_heads(feats, whwh, t)
+        with span('mcgaze.select'):
+            return topk_tracks_batched(out['stages'][-1], kq, t,
+                                       mc.max_per_img, mc.num_classes)
 
     return fwd, fwd_batched
 
@@ -183,8 +192,11 @@ def bind_query_forward(fwd, fwd_batched, device):
         return fwd(to_device(imgs, dev), to_device(whwh, dev))
 
     def batched(imgs, whwh, kq):
-        dev = run_device(imgs, device)
-        return fwd_batched(to_device(imgs, dev), to_device(whwh, dev), kq)
+        with span('mcgaze.eval'):
+            dev = run_device(imgs, device)
+            with span('mcgaze.handover'):
+                args = (to_device(imgs, dev), to_device(whwh, dev))
+            return fwd_batched(*args, kq)
 
     forward.batched = batched
     forward.accepts_uint8 = True

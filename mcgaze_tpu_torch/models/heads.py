@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.stqi_attention import fused_stqi_attention
-from .layers import LayerNorm, Linear, blocked_linear
+from .layers import LayerNorm, Linear, blocked_linear, cast_param
 
 CLUES = ('face', 'eyes', 'head')
 # rows per product of STQIHead's attention in_proj and DynamicConv fc_layer
@@ -74,7 +74,8 @@ def _batched_towers(x, towers):
     dtype = x.dtype
     for li in range(0, len(towers[0]), 3):
         lin, norm = [t[li] for t in towers], [t[li + 1] for t in towers]
-        kern = torch.stack([m.weight for m in lin]).to(dtype).float()
+        kern = cast_param(torch.stack([m.weight for m in lin]),
+                          dtype).float()
         y = torch.einsum('nqc,qdc->nqd', x.float(), kern)
         y = F.layer_norm(y, y.shape[-1:], eps=norm[0].eps)
         y = (y * torch.stack([m.weight for m in norm])
@@ -88,8 +89,8 @@ def _batched_heads(x, heads):
     f32 from operands rounded to x's dtype, rounded to x's dtype, plus the
     bias in x's dtype."""
     dtype = x.dtype
-    kern = torch.stack([m.weight for m in heads]).to(dtype).float()
-    bias = torch.stack([m.bias for m in heads]).to(dtype)
+    kern = cast_param(torch.stack([m.weight for m in heads]), dtype).float()
+    bias = cast_param(torch.stack([m.bias for m in heads]), dtype)
     return torch.einsum('nqc,qoc->nqo', x.float(), kern).to(dtype) + bias
 
 

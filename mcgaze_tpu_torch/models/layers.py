@@ -12,18 +12,27 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.profiling import WEIGHT_CAST_BYTES, count
+
 # torch/mmcv LayerNorm epsilon of the heads (mcgaze_tpu/models/heads.py);
 # the MsgShifT backbone passes its own 1e-6 (models/msgshift.py)
 LN_EPS = 1e-5
 
 
-def _cast(p, dtype):
-    return None if p is None else p.to(dtype)
+def cast_param(p, dtype):
+    """p in dtype; a conversion adds p's bytes to the recorder's
+    weight_cast_bytes (utils/profiling.py), a parameter already in dtype
+    is p itself and adds nothing."""
+    if p is None or p.dtype == dtype:
+        return p
+    count(WEIGHT_CAST_BYTES, p)
+    return p.to(dtype)
 
 
 class Linear(nn.Linear):
     def forward(self, x):
-        return F.linear(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
+        return F.linear(x, cast_param(self.weight, x.dtype),
+                        cast_param(self.bias, x.dtype))
 
 
 def blocked_linear(x, weight, bias=None, rows: int | None = None):
@@ -34,7 +43,7 @@ def blocked_linear(x, weight, bias=None, rows: int | None = None):
     so in bf16 a clip's outputs moved with the number of clips in its
     serving bucket; a block of fixed shape sums each row the same way
     whatever shares the call. rows=None: one F.linear."""
-    w, b = weight.to(x.dtype), _cast(bias, x.dtype)
+    w, b = cast_param(weight, x.dtype), cast_param(bias, x.dtype)
     if rows is None:
         return F.linear(x, w, b)
     lead, k = x.shape[:-1], x.shape[-1]
@@ -47,8 +56,8 @@ def blocked_linear(x, weight, bias=None, rows: int | None = None):
 
 class Conv2d(nn.Conv2d):
     def forward(self, x):
-        return self._conv_forward(x, self.weight.to(x.dtype),
-                                  _cast(self.bias, x.dtype))
+        return self._conv_forward(x, cast_param(self.weight, x.dtype),
+                                  cast_param(self.bias, x.dtype))
 
 
 class LayerNorm(nn.LayerNorm):

@@ -21,9 +21,10 @@ from ..geometry import bbox_cxcywh_to_xyxy, delta2bbox
 from ..ops.roi_align import roi_align_fpn_mm
 from ..ops.roi_align_cuda import roi_align_fpn
 from ..utils.env import resolve_device
+from ..utils.profiling import span
 from .fpn import FPN
 from .heads import GazeHead, STQIHead
-from .layers import init_weights
+from .layers import cast_param, init_weights
 from .resnet import ResNet
 
 DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
@@ -121,12 +122,20 @@ class MCGazeModel(nn.Module):
         self.rpn_head = _RPNHead(cfg.num_queries, cfg.channels)
         self.roi_head = _RoIHead(cfg)
 
-    def extract_features(self, imgs: torch.Tensor) -> tuple:
+    def extract_features(self, imgs: torch.Tensor, normalize=None) -> tuple:
         """(N, H, W, 3) normalised NHWC frames -> 4 NHWC-contiguous FPN
         levels. The backbone runs channels_last: the NCHW view of an NHWC
-        tensor already is."""
-        x = imgs.to(self.cfg.torch_dtype).permute(0, 3, 1, 2)
-        return self.neck(self.backbone(x))
+        tensor already is. normalize: a function the frames go through
+        first, inside the backbone's span (the eval forwards' u8
+        normalisation on the device)."""
+        with span('mcgaze.backbone'):
+            if normalize is not None:
+                with span('mcgaze.device_normalize'):
+                    imgs = normalize(imgs)
+            x = imgs.to(self.cfg.torch_dtype).permute(0, 3, 1, 2)
+            levels = self.backbone(x)
+        with span('mcgaze.fpn'):
+            return self.neck(levels)
 
     def run_heads(self, feats: tuple, img_whwh: torch.Tensor,
                   clip_length: int | None = None,
@@ -142,30 +151,33 @@ class MCGazeModel(nn.Module):
         roi_align = roi_align_fpn if cfg.roi_impl == 'auto' \
             else roi_align_fpn_mm
 
-        boxes = (bbox_cxcywh_to_xyxy(
-            self.rpn_head.init_proposal_bboxes.weight)[None]
-            * img_whwh[:, None, :])
-        query = self.rpn_head.init_proposal_features.weight[None].to(
-            dtype).expand(n, q, cfg.channels)
+        with span('mcgaze.heads'):
+            boxes = (bbox_cxcywh_to_xyxy(
+                self.rpn_head.init_proposal_bboxes.weight)[None]
+                * img_whwh[:, None, :])
+            query = cast_param(self.rpn_head.init_proposal_features.weight,
+                               dtype)[None].expand(n, q, cfg.channels)
 
-        stages = []
-        for stage in range(cfg.num_stages):
-            # boxes are fed forward detached between stages
-            # (detach_proposal_list, multiclue_gaze_roi_head.py:134)
-            rois = boxes.detach().to(torch.float32).contiguous()
-            roi_feat = roi_align(feats, rois, frame_idx, cfg.roi_size,
-                                 cfg.sampling_ratio, cfg.strides,
-                                 cfg.finest_scale)
-            roi_feat = roi_feat.reshape(n * q, cfg.roi_size, cfg.roi_size,
-                                        cfg.channels)
-            cls_logits, deltas, obj = self.roi_head.bbox_head[stage](
-                roi_feat, query, t)
-            boxes = delta2bbox(rois, deltas.to(torch.float32))
-            gaze = self.roi_head.gaze_head[stage](obj)
-            stages.append(dict(
-                cls_logits=cls_logits.to(torch.float32), boxes=boxes,
-                gaze={k: v.to(torch.float32) for k, v in gaze.items()}))
-            query = obj
+            stages = []
+            for stage in range(cfg.num_stages):
+                with span('mcgaze.heads.stage', stage):
+                    # boxes are fed forward detached between stages
+                    # (detach_proposal_list, multiclue_gaze_roi_head.py:134)
+                    rois = boxes.detach().to(torch.float32).contiguous()
+                    roi_feat = roi_align(feats, rois, frame_idx,
+                                         cfg.roi_size, cfg.sampling_ratio,
+                                         cfg.strides, cfg.finest_scale)
+                    roi_feat = roi_feat.reshape(n * q, cfg.roi_size,
+                                                cfg.roi_size, cfg.channels)
+                    cls_logits, deltas, obj = self.roi_head.bbox_head[stage](
+                        roi_feat, query, t)
+                    boxes = delta2bbox(rois, deltas.to(torch.float32))
+                    gaze = self.roi_head.gaze_head[stage](obj)
+                    stages.append(dict(
+                        cls_logits=cls_logits.to(torch.float32), boxes=boxes,
+                        gaze={k: v.to(torch.float32)
+                              for k, v in gaze.items()}))
+                    query = obj
         return dict(stages=stages)
 
     def forward(self, imgs: torch.Tensor, img_whwh: torch.Tensor,

@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Conv2d, LayerNorm, Linear
+from .layers import Conv2d, LayerNorm, Linear, cast_param
 
 LN_EPS_PVT = 1e-6
 
@@ -52,7 +52,7 @@ def _summed(conv: nn.Conv2d, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
     """A convolution's spatially summed kernel as a (C_in, C_out) matrix and
     its bias, in `dtype`."""
     return (conv.weight.sum((2, 3)).t().to(dtype),
-            conv.bias.to(dtype))
+            cast_param(conv.bias, dtype))
 
 
 class CrossMHA(nn.Module):
@@ -161,7 +161,8 @@ class MixFFN(nn.Module):
         w1, b1 = _summed(fc1, dtype)
         w2, b2 = _summed(fc2, dtype)
         msg = msg @ w1 + b1
-        msg = msg * dw.weight.sum((1, 2, 3)).to(dtype) + dw.bias.to(dtype)
+        msg = (msg * dw.weight.sum((1, 2, 3)).to(dtype)
+               + cast_param(dw.bias, dtype))
         return y, F.gelu(msg) @ w2 + b2
 
 
@@ -259,7 +260,7 @@ class MsgShifT(nn.Module):
                 generator: Optional[torch.Generator] = None) -> tuple:
         """x (B*T, 3, H, W), H and W multiples of 32 -> 4 NCHW levels.
         generator: DropPath's masks (training); None: no DropPath."""
-        msg = self.msg_tokens.to(x.dtype).expand(x.shape[0], -1, -1)
+        msg = cast_param(self.msg_tokens, x.dtype).expand(x.shape[0], -1, -1)
         outs = []
         for embed, blocks, norm in self.layers:
             x, hw, msg = embed(x, msg)

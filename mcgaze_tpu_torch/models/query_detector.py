@@ -34,9 +34,10 @@ from ..geometry import bbox_cxcywh_to_xyxy, delta2bbox
 from ..ops.roi_align import roi_align_fpn_mm
 from ..ops.roi_align_cuda import roi_align_fpn
 from ..utils.env import resolve_device
+from ..utils.profiling import span
 from .fpn import FPN
 from .heads import _FFN, DynamicConv, MultiheadAttention, mlp_tower
-from .layers import LayerNorm, Linear, init_weights
+from .layers import LayerNorm, Linear, cast_param, init_weights
 from .mcgaze import DTYPES, _RPNHead
 from .msgshift import MsgShifT
 from .resnet import ResNet
@@ -192,20 +193,28 @@ class QueryDetector(nn.Module):
 
     def extract_features(self, imgs: torch.Tensor,
                          clip_length: int | None = None, train: bool = False,
-                         generator: torch.Generator | None = None) -> tuple:
+                         generator: torch.Generator | None = None,
+                         normalize=None) -> tuple:
         """(N, H, W, 3) normalised NHWC frames -> 4 NHWC FPN levels.
         MsgShifT rolls its messengers over clips of clip_length frames;
-        train=True turns its DropPath on, drawing from `generator`."""
-        x = imgs.to(self.cfg.torch_dtype).permute(0, 3, 1, 2)
-        if self.cfg.backbone != 'msgshift':
-            return self.neck(self.backbone(x))
+        train=True turns its DropPath on, drawing from `generator`.
+        normalize: as MCGazeModel.extract_features."""
         drop = train and self.cfg.msg_drop_path_rate > 0.0
-        if drop and generator is None:
+        if self.cfg.backbone == 'msgshift' and drop and generator is None:
             raise ValueError('MsgShifT DropPath (train=True) needs a '
                              'torch.Generator for its masks')
-        return self.neck(self.backbone(
-            x, clip_length or self.cfg.clip_length,
-            generator if drop else None))
+        with span('mcgaze.backbone'):
+            if normalize is not None:
+                with span('mcgaze.device_normalize'):
+                    imgs = normalize(imgs)
+            x = imgs.to(self.cfg.torch_dtype).permute(0, 3, 1, 2)
+            if self.cfg.backbone != 'msgshift':
+                levels = self.backbone(x)
+            else:
+                levels = self.backbone(x, clip_length or self.cfg.clip_length,
+                                       generator if drop else None)
+        with span('mcgaze.fpn'):
+            return self.neck(levels)
 
     def run_heads(self, feats: tuple, img_whwh: torch.Tensor,
                   clip_length: int | None = None) -> dict:
@@ -217,31 +226,34 @@ class QueryDetector(nn.Module):
         roi_align = roi_align_fpn if cfg.roi_impl == 'auto' \
             else roi_align_fpn_mm
 
-        boxes = (bbox_cxcywh_to_xyxy(
-            self.rpn_head.init_proposal_bboxes.weight)[None]
-            * img_whwh[:, None, :])
-        query = self.rpn_head.init_proposal_features.weight[None].to(
-            dtype).expand(n, q, cfg.channels)
+        with span('mcgaze.heads'):
+            boxes = (bbox_cxcywh_to_xyxy(
+                self.rpn_head.init_proposal_bboxes.weight)[None]
+                * img_whwh[:, None, :])
+            query = cast_param(self.rpn_head.init_proposal_features.weight,
+                               dtype)[None].expand(n, q, cfg.channels)
 
-        stages = []
-        for stage in range(cfg.num_stages):
-            # boxes are fed forward detached between stages
-            # (instblink_roi_head.py:142)
-            rois = boxes.detach().to(torch.float32).contiguous()
-            roi_feat = roi_align(feats, rois, None, cfg.roi_size,
-                                 cfg.sampling_ratio, cfg.strides,
-                                 cfg.finest_scale)
-            roi_feat = roi_feat.reshape(n * q, cfg.roi_size, cfg.roi_size,
-                                        cfg.channels)
-            cls_logits, deltas, obj, attn_feat = \
-                self.roi_head.bbox_head[stage](roi_feat, query, t)
-            boxes = delta2bbox(rois, deltas.to(torch.float32))
-            out = dict(cls_logits=cls_logits.to(torch.float32), boxes=boxes)
-            if cfg.with_blink:
-                out['blink_logits'] = self.roi_head.blink_head[stage](
-                    attn_feat).to(torch.float32)
-            stages.append(out)
-            query = obj
+            stages = []
+            for stage in range(cfg.num_stages):
+                with span('mcgaze.heads.stage', stage):
+                    # boxes are fed forward detached between stages
+                    # (instblink_roi_head.py:142)
+                    rois = boxes.detach().to(torch.float32).contiguous()
+                    roi_feat = roi_align(feats, rois, None, cfg.roi_size,
+                                         cfg.sampling_ratio, cfg.strides,
+                                         cfg.finest_scale)
+                    roi_feat = roi_feat.reshape(n * q, cfg.roi_size,
+                                                cfg.roi_size, cfg.channels)
+                    cls_logits, deltas, obj, attn_feat = \
+                        self.roi_head.bbox_head[stage](roi_feat, query, t)
+                    boxes = delta2bbox(rois, deltas.to(torch.float32))
+                    out = dict(cls_logits=cls_logits.to(torch.float32),
+                               boxes=boxes)
+                    if cfg.with_blink:
+                        out['blink_logits'] = self.roi_head.blink_head[
+                            stage](attn_feat).to(torch.float32)
+                    stages.append(out)
+                    query = obj
         return dict(stages=stages)
 
     def forward(self, imgs: torch.Tensor, img_whwh: torch.Tensor,

@@ -34,6 +34,10 @@ slices. The clip's norm and the logged grad_norm count a split gradient's
 squares summed over the model group and a replicated one once, so every
 rank clips by the one-process factor; AdamW and the EMA work element by
 element on the slices.
+
+Spans (utils/profiling.py, recorded only inside `recording()`): the step
+is `mcgaze.train`, with `train.forward` (model and criterion),
+`train.backward` and `train.update` (apply_update) inside it.
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ from ..models.mcgaze import MCGazeModel, ModelConfig, init_model
 from ..parallel.distributed import average_over_processes
 from ..parallel.mesh import Mesh, tp_rule
 from ..parallel.tensor_parallel import shard_model
+from ..utils.profiling import span
 from .criterion import total_loss
 from .hooks import ema_update
 from .targets import flatten_targets
@@ -200,14 +205,18 @@ def make_train_step(cfg: ModelConfig, oc: OptimConfig):
     sched = step_warmup_schedule(oc)
 
     def train_step(state: TrainState, batch: dict) -> dict:
-        for p in state.model.parameters():
-            p.grad = None
-        loss, logs = loss_fn(cfg, state.forward_model, batch)
-        loss.backward()
-        logs = average_over_processes({k: v.detach()
-                                       for k, v in logs.items()})
-        logs['grad_norm'] = apply_update(state, oc, sched)
-        return logs
+        with span('mcgaze.train'):
+            for p in state.model.parameters():
+                p.grad = None
+            with span('mcgaze.train.forward'):
+                loss, logs = loss_fn(cfg, state.forward_model, batch)
+            with span('mcgaze.train.backward'):
+                loss.backward()
+            logs = average_over_processes({k: v.detach()
+                                           for k, v in logs.items()})
+            with span('mcgaze.train.update'):
+                logs['grad_norm'] = apply_update(state, oc, sched)
+            return logs
 
     return train_step
 

@@ -8,7 +8,37 @@
   * cost_analysis: the FLOPs of one call, from
     torch.utils.flop_counter.FlopCounterMode, with the port's kernels
     counted through their operators (below);
-  * IterTimer: per-iteration time and data time (mmcv IterTimerHook).
+  * IterTimer: per-iteration time and data time (mmcv IterTimerHook);
+  * span, count, recording, drain: the program's own spans and counters
+    (below), which trace also writes into its Chrome trace.
+
+Spans and counters. The program marks its layers with `span(name)` (a
+context manager) and counts work with `count(name, n)`. Both are off
+unless a `recording()` block is open: then span returns one shared no-op
+context and count returns, each after one test of a module flag, with
+nothing allocated, synchronised or handed to the torch profiler. Inside
+`recording()` every span is kept as (name, start_ns, end_ns, parent,
+call): a span opened with no span open on its thread is a root and
+starts a call, and every span inside it carries that call's id. Each
+counter is a total a call (the call of the innermost open span; None
+outside every root), and each call also holds the kernels' launch
+counters' deltas over its root (`launch_counts()`, as
+'launch_count.k1' ...). `drain()` returns the record and empties it.
+Timestamps are time.time_ns(), the Unix-epoch nanoseconds that the torch
+profiler stamps its events with, so a span and the operators and device
+activity of a profiled block lie on one timeline.
+
+The spans of the main paths (names `mcgaze.<layer>`): `eval` (root:
+`evaluation/forward.py`'s bound `dedup` and `batched` forwards),
+`handover` (their host-to-device copies), `backbone` (with
+`device_normalize` inside it on the eval paths) and `fpn`
+(`extract_features`), `heads` and a child `heads.stage<i>` a query stage
+(`run_heads`), `select` (the last stage's outputs, the top-k tracks);
+`train` (root: `train/loop.py::make_train_step`) with `train.forward`,
+`train.backward` and `train.update`. The one counter is
+`weight_cast_bytes`: the bytes of f32 parameters converted to another
+dtype at use (`models/layers.py`, the heads' stacked clue weights); a
+same-dtype `.to()` copies nothing and counts nothing.
 
 The kernels are called through ctypes outside the dispatcher, where no
 dispatch mode sees them. cost_analysis runs the call inside
@@ -26,8 +56,12 @@ the program's traffic is not estimated ('bytes not counted' says what).
 from __future__ import annotations
 
 import contextlib
+import itertools
+import json
 import os
+import threading
 import time
+from collections import defaultdict
 from typing import Any, Callable
 
 import torch
@@ -66,11 +100,151 @@ def profile_time(name: str, stream=None, end_stream=None, sync: Any = None,
             print(f'{name}: {dt * 1e3:.2f} ms')
 
 
+# ------------------------------------------------------ spans and counters
+
+WEIGHT_CAST_BYTES = 'weight_cast_bytes'
+
+_on = False                      # the one flag every span and count tests
+_local = threading.local()       # .stack: the open spans of this thread
+_lock = threading.Lock()         # guards what follows while recording
+_spans = []                      # [name, start_ns, end_ns, parent, call]
+_counts = defaultdict(int)       # (call, name) -> total
+_call_ids = itertools.count()
+_clock = time.time_ns            # the torch profiler's clock
+
+
+class _Off:
+    """The shared context of a span while nothing records."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _Span:
+    __slots__ = ('name', 'index', 'launches')
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        stack = getattr(_local, 'stack', None)
+        if stack is None:
+            stack = _local.stack = []
+        # a root reads the launch counters: their deltas count every launch
+        # of the process while it is open, other threads' too
+        self.launches = None if stack else launch_counts()
+        with _lock:
+            if stack:
+                parent = stack[-1]
+                call = _spans[parent][4]
+            else:
+                parent, call = None, next(_call_ids)
+            self.index = len(_spans)
+            rec = [self.name, 0, 0, parent, call]
+            _spans.append(rec)
+        stack.append(self.index)
+        rec[1] = _clock()
+        return None
+
+    def __exit__(self, *exc):
+        end = _clock()
+        rec = _spans[self.index]
+        rec[2] = end
+        _local.stack.pop()
+        if self.launches is not None:
+            moved = {k: n - self.launches[k]
+                     for k, n in launch_counts().items()}
+            with _lock:
+                for k, n in moved.items():
+                    _counts[(rec[4], 'launch_count.' + k)] += n
+        return False
+
+
+def span(name: str, index: int | None = None):
+    """A context that records the block as span `name` (`name` followed
+    by `index`, where given) inside recording(); outside it, one shared
+    context that does nothing."""
+    if not _on:
+        return _OFF
+    return _Span(name if index is None else f'{name}{index}')
+
+
+def count(name: str, n) -> None:
+    """Add n (a number, or a tensor: its bytes) to counter `name` of the
+    current call inside recording(); outside it, nothing."""
+    if not _on:
+        return
+    if isinstance(n, torch.Tensor):
+        n = n.numel() * n.element_size()
+    stack = getattr(_local, 'stack', None)
+    with _lock:
+        call = _spans[stack[-1]][4] if stack else None
+        _counts[(call, name)] += n
+
+
+@contextlib.contextmanager
+def recording():
+    """Spans and counters on for the block (and back as they were after
+    it); what they record stays until drain()."""
+    global _on
+    before = _on
+    _on = True
+    try:
+        yield
+    finally:
+        _on = before
+
+
+def drain() -> dict:
+    """{'spans': [{'name', 'start_ns', 'end_ns', 'parent', 'call'}] in the
+    order they opened (parent: the index of the enclosing span, None for a
+    root), 'counts': {call: {counter: total}}}, and the recorder emptied.
+    Raises RuntimeError while a span is still open."""
+    with _lock:
+        if any(rec[2] == 0 for rec in _spans):
+            raise RuntimeError('drain() inside an open span')
+        spans = [dict(name=n, start_ns=s, end_ns=e, parent=p, call=c)
+                 for n, s, e, p, c in _spans]
+        counts = defaultdict(dict)
+        for (call, name), n in _counts.items():
+            counts[call][name] = n
+        _spans.clear()
+        _counts.clear()
+    return dict(spans=spans, counts=dict(counts))
+
+
+SPAN_TID = 1 << 30               # the spans' track: above any Linux tid
+
+
+def _chrome_events(spans: list, base_ns: int) -> list:
+    """The spans as Chrome trace complete events ('X', microseconds after
+    the trace's base time) on a track of their own in this process."""
+    pid = os.getpid()
+    named = dict(ph='M', name='thread_name', pid=pid, tid=SPAN_TID,
+                 args=dict(name='mcgaze spans'))
+    return [named] + [
+        dict(ph='X', cat='mcgaze_span', name=s['name'], pid=pid,
+             tid=SPAN_TID, ts=(s['start_ns'] - base_ns) / 1e3,
+             dur=(s['end_ns'] - s['start_ns']) / 1e3,
+             args=dict(call=s['call']))
+        for s in spans]
+
+
 @contextlib.contextmanager
 def trace(log_dir: str):
     """torch.profiler over the block, CPU and CUDA activities (CUDA where
     the build has it), saved as a Chrome trace `trace_<pid>.json` into
-    log_dir (TensorBoard's and chrome://tracing's format)."""
+    log_dir (TensorBoard's and chrome://tracing's format). The program's
+    spans are recorded over the block and written into the same trace, on
+    a host track of their own ('mcgaze spans') beside the operators and
+    kernels."""
     from torch.profiler import ProfilerActivity, profile
     os.makedirs(log_dir, exist_ok=True)
     activities = [ProfilerActivity.CPU]
@@ -79,11 +253,19 @@ def trace(log_dir: str):
     prof = profile(activities=activities)
     prof.__enter__()
     try:
-        yield prof
+        with recording():
+            yield prof
     finally:
         prof.__exit__(None, None, None)
-        prof.export_chrome_trace(
-            os.path.join(log_dir, f'trace_{os.getpid()}.json'))
+        path = os.path.join(log_dir, f'trace_{os.getpid()}.json')
+        prof.export_chrome_trace(path)
+        spans = drain()['spans']
+        with open(path) as f:
+            doc = json.load(f)
+        doc['traceEvents'] += _chrome_events(
+            spans, doc.get('baseTimeNanoseconds', 0))
+        with open(path, 'w') as f:
+            json.dump(doc, f)
 
 
 # ---------------------------------------------------------- cost analysis
