@@ -640,19 +640,26 @@ def phase_slice(device, timer):
         built[dt] = (model, fwd, fwd_dedup,
                      bind_forward(fwd, device, fwd_dedup))
 
-    # the main path: launch counts from zero, read right after
+    # the main path: launch counts from zero, read right after; K1 on the
+    # card from the profiler's trace (main_s includes its cost)
     roi_align_cuda.launch_count = 0
     roi_align_cuda.bwd_launch_count = 0
     t0 = time.perf_counter()
-    res = {dt: VideoGazeEvaluator(built[dt][3], ecfg).run_video(frames, 0)
-           for dt in built}
-    torch.cuda.synchronize()
+    with on_card(device) as ran:
+        res = {dt: VideoGazeEvaluator(built[dt][3], ecfg).run_video(
+            frames, 0) for dt in built}
+        torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     launches = roi_align_cuda.launch_count
     cfg = built['float32'][0].cfg
-    expected = 2 * n_forwards * cfg.num_stages
+    on_card_expected = 2 * n_forwards * cfg.num_stages
+    expected = on_card_expected - cfg.num_stages * ran['replayed']
+    check(ran['k1'] == on_card_expected, f'the card ran K1 {ran["k1"]} '
+          f'times on the main path, expected {on_card_expected} (4 per '
+          'forward)')
     check(launches == expected, f'RoIAlign kernel launched {launches} '
-          f'times on the main path, expected {expected} (4 per forward)')
+          f'times on the main path, expected {expected} (4 per forward '
+          f'but the {ran["replayed"]} that replayed a graph)')
     check(roi_align_cuda.bwd_launch_count == 0, 'the eval path launched '
           'the backward kernel')
     for dt, r in res.items():
@@ -708,6 +715,7 @@ def phase_slice(device, timer):
     fwd_ms = timer.ms(step, reps=10)
     emit('slice', frames=60, clips=n_clips, forwards_per_video=n_forwards,
          roi_launches=launches, roi_launches_expected=expected,
+         k1_on_card=ran['k1'], replayed_forwards=ran['replayed'],
          main_path_seconds=main_s, fwd_dedup_vs_fwd_err=dedup_err,
          kernel_vs_plain_e2e_err=plain_err, tol_e2e=TOL_E2E,
          bf16_k32_fwd_ms=fwd_ms,
@@ -1278,6 +1286,43 @@ def reset_counters():
     fused_bottleneck.launch_count = 0
 
 
+@contextlib.contextmanager
+def on_card(device):
+    """What the eval calls inside the block ran, in the dict it yields,
+    filled on exit. 'replayed': the calls that replayed a CUDA graph they
+    did not capture (evaluation/forward.py::EvalGraphs' counters, in a
+    recording()); such a call runs no kernel wrapper, so the kernels'
+    launch_count counters leave its launches out. 'k1', 'k4', 'k5': the
+    kernels the card ran, by name, in a CUDA-only profiler trace, which
+    sees a replayed graph's kernels too (None off a card)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mcgaze_tpu_torch.utils import profiling
+
+    ran = {}
+    profiling.drain()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(profiling.recording())
+        prof = (stack.enter_context(profile(
+            activities=[ProfilerActivity.CUDA]))
+            if device.type == 'cuda' else None)
+        yield ran
+        if prof is not None:
+            torch.cuda.synchronize()
+    calls = profiling.drain()['counts'].values()
+
+    def total(name):
+        return sum(c.get(name, 0) for c in calls)
+    ran['replayed'] = (total('eval_graph_replays') -
+                       total('eval_graph_captures'))
+    for key, name in (('k1', 'roi_align_fpn_kernel'),
+                      ('k4', 'stqi_attention_kernel'), ('k5', 'conv_gemm')):
+        ran[key] = None if prof is None else sum(
+            ev.count for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and name in ev.key)
+
+
 def phase_slice_fused(device, timer):
     """The fused configuration at full width through run_video, f32 and
     bf16, counters from zero; one chunk in f32 with TF32 off against the
@@ -1307,19 +1352,27 @@ def phase_slice_fused(device, timer):
     # the main path: launch counts from zero, read right after
     reset_counters()
     t0 = time.perf_counter()
-    res = {dt: VideoGazeEvaluator(built[dt][3], ecfg).run_video(frames, 0)
-           for dt in built}
-    torch.cuda.synchronize()
+    with on_card(device) as ran:
+        res = {dt: VideoGazeEvaluator(built[dt][3], ecfg).run_video(
+            frames, 0) for dt in built}
+        torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     launches = fused_counters()
     cfg = built['float32'][0].cfg
     k5_per_forward = sum(k5_launches(ch) for ch in chains(cfg.backbone_depth))
-    forwards = 2 * n_forwards
-    expected = dict(k1=forwards * cfg.num_stages, k3=0,
+
+    def per(forwards):
+        return dict(k1=forwards * cfg.num_stages, k3=0,
                     k4=forwards * cfg.num_stages,
                     k5=forwards * k5_per_forward)
+    card = {k: ran[k] for k in ('k1', 'k4', 'k5')}
+    check(card == {k: n for k, n in per(2 * n_forwards).items() if k != 'k3'},
+          f'the card ran {card} on the fused main path, expected '
+          f'{per(2 * n_forwards)}')
+    expected = per(2 * n_forwards - ran['replayed'])
     check(launches == expected, f'fused main path launched {launches}, '
-          f'expected {expected}')
+          f'expected {expected} (the {ran["replayed"]} forwards that '
+          'replayed a graph call no wrapper)')
     for dt, r in res.items():
         check(len(r['fusion_gazes']) == 60, f'{dt}: '
               f'{len(r["fusion_gazes"])} frames in the result')
@@ -1399,7 +1452,9 @@ def phase_slice_fused(device, timer):
     fwd_ms = timer.ms(step, reps=10)
     emit('slice_fused', frames=60, clips=n_clips,
          forwards_per_video=n_forwards, launches=launches,
-         launches_expected=expected, k5_launches_per_forward=k5_per_forward,
+         launches_expected=expected, on_card=card,
+         replayed_forwards=ran['replayed'],
+         k5_launches_per_forward=k5_per_forward,
          main_path_seconds=main_s, fwd_dedup_vs_fwd_err=dedup_err,
          fused_vs_plain_e2e_err=plain_err, tol_e2e=TOL_E2E,
          bf16_vs_f32_plain=dict(
@@ -1709,14 +1764,18 @@ def phase_cli(device, checkpoint):
                  'float32')):
             roi_align_cuda.launch_count = 0
             roi_align_cuda.bwd_launch_count = 0
-            out = main(argv + ['--json', ann, '--root', frames])
-            torch.cuda.synchronize()
+            with on_card(device) as ran:
+                out = main(argv + ['--json', ann, '--root', frames])
+                torch.cuda.synchronize()
             launches = dict(k1=roi_align_cuda.launch_count,
                             k3=roi_align_cuda.bwd_launch_count)
-            expected = 4 * forwards(clip_batch)
+            check(ran['k1'] == 4 * forwards(clip_batch), f'{name}: the card '
+                  f'ran K1 {ran["k1"]} times, expected '
+                  f'{4 * forwards(clip_batch)} (4 per forward)')
+            expected = 4 * (forwards(clip_batch) - ran['replayed'])
             check(launches == dict(k1=expected, k3=0), f'{name} launched '
-                  f'{launches}, expected {expected} K1 (4 per forward) and '
-                  'no K3')
+                  f'{launches}, expected {expected} K1 (4 per forward that '
+                  'replayed no graph) and no K3')
             check(out['evaluator'].decoder == NPY_DECODE,
                   f'{name} decoded with {out["evaluator"].decoder}')
             path = out.get('path') or argv[argv.index('--out') + 1]
@@ -1725,7 +1784,9 @@ def phase_cli(device, checkpoint):
             runs[name] = dict(
                 config=os.path.relpath(argv[0], ROOT), dtype=dtype,
                 clip_batch=clip_batch, forwards=forwards(clip_batch),
-                launches=launches, frames=frames_n, seconds=out['seconds'],
+                launches=launches, k1_on_card=ran['k1'],
+                replayed_forwards=ran['replayed'], frames=frames_n,
+                seconds=out['seconds'],
                 frames_per_s=frames_n / out['seconds'],
                 gaze_norm_err=norm_err, metrics=out.get('metrics'),
                 results=path, annotations=ann)
@@ -2012,23 +2073,26 @@ def phase_serve(device, checkpoint, opts=(), dtype='bfloat16',
                                    octet)
             check(status == 400 and 'error' in data, f'400: {status}')
 
-            # the main path: counts from zero, read right after
+            # the main path: counts from zero, read right after; K1 on
+            # the card from the profiler's trace (the window's numbers
+            # include its cost)
             reset_counters()
-            status, lone_raw, first_s = post(port, '/predictions/mcgaze',
-                                             raw, octet)
-            check(status == 200, f'raw request: {status} {lone_raw}')
-            lone_posts = [post(port, '/predictions/mcgaze', b,
-                               'application/json') for b in bodies]
-            check(all(p[0] == 200 for p in lone_posts), 'lone clips')
-            concurrent_round(port, bodies)
-            batches = len(proc.batcher.batch_sizes)
-            results, window_wall = concurrent_round(port, bodies,
-                                                    seconds=window_s)
-            burst = proc.batcher.batch_sizes[batches:]
-            long_body = json_body(frames(33))
-            long_posts = [post(port, '/predictions/mcgaze', long_body,
-                               'application/json') for _ in range(2)]
-            torch.cuda.synchronize()
+            with on_card(device) as ran:
+                status, lone_raw, first_s = post(
+                    port, '/predictions/mcgaze', raw, octet)
+                check(status == 200, f'raw request: {status} {lone_raw}')
+                lone_posts = [post(port, '/predictions/mcgaze', b,
+                                   'application/json') for b in bodies]
+                check(all(p[0] == 200 for p in lone_posts), 'lone clips')
+                concurrent_round(port, bodies)
+                batches = len(proc.batcher.batch_sizes)
+                results, window_wall = concurrent_round(port, bodies,
+                                                        seconds=window_s)
+                burst = proc.batcher.batch_sizes[batches:]
+                long_body = json_body(frames(33))
+                long_posts = [post(port, '/predictions/mcgaze', long_body,
+                                   'application/json') for _ in range(2)]
+                torch.cuda.synchronize()
             launches = roi_align_cuda.launch_count
             check(all(p[0] == 200 for p in long_posts), 'long requests')
             chunks = -(-len(clip_slices(33, proc.eval_cfg.clip_length,
@@ -2036,9 +2100,13 @@ def phase_serve(device, checkpoint, opts=(), dtype='bfloat16',
                        // proc.eval_cfg.clip_batch)
             forwards = (len(proc.batcher.batch_sizes) - warm_batches +
                         len(long_posts) * chunks)
-            check(launches == 4 * forwards, f'serve: K1 launched '
-                  f'{launches} times, expected {4 * forwards} (4 per '
+            check(ran['k1'] == 4 * forwards, f'serve: the card ran K1 '
+                  f'{ran["k1"]} times, expected {4 * forwards} (4 per '
                   f'forward, {forwards} forwards)')
+            wrapped = 4 * (forwards - ran['replayed'])
+            check(launches == wrapped, f'serve: K1 launched {launches} '
+                  f'times, expected {wrapped} (4 per forward, {forwards} '
+                  f'forwards, {ran["replayed"]} of them replayed graphs)')
             check(roi_align_cuda.bwd_launch_count == 0, 'serve launched K3')
         finally:
             stop_server(server, thread)
@@ -2132,6 +2200,7 @@ def phase_serve(device, checkpoint, opts=(), dtype='bfloat16',
          config=f'gaze360, R50 full width, {dtype}, 224 px, no crop',
          max_batch=8, warmup_s=warm_s, warmup_s_by_bucket=warm,
          first_request_ms=first_s * 1e3, raw_vs_local_err=raw_err,
+         k1_on_card=ran['k1'], replayed_forwards=ran['replayed'],
          lone_clip_ms=[p[2] * 1e3 for p in lone_posts],
          window_s=window_s, window_clients=clients,
          window_requests=len(lat_ms), window_wall_s=window_wall,
@@ -2411,12 +2480,16 @@ def phase_demo(device, opts=()):
     forwards = 2 * -(-len(slices) // ecfg.clip_batch)
     reset_counters()
     t0 = time.perf_counter()
-    gaze_demo.segment_gazes(evaluator, frames, segments)
-    torch.cuda.synchronize()
+    with on_card(device) as ran:
+        gaze_demo.segment_gazes(evaluator, frames, segments)
+        torch.cuda.synchronize()
     gaze_s = time.perf_counter() - t0
     launches = roi_align_cuda.launch_count
-    check(launches == 4 * forwards, f'demo: K1 launched {launches} times, '
-          f'expected {4 * forwards} (4 per forward)')
+    check(ran['k1'] == 4 * forwards, f'demo: the card ran K1 {ran["k1"]} '
+          f'times, expected {4 * forwards} (4 per forward)')
+    wrapped = 4 * (forwards - ran['replayed'])
+    check(launches == wrapped, f'demo: K1 launched {launches} times, '
+          f'expected {wrapped} (4 per forward that replayed no graph)')
     covered = np.zeros(len(frames), int)
     for start, length, _ in slices:
         covered[start:start + length] += 1
@@ -2437,7 +2510,8 @@ def phase_demo(device, opts=()):
          labels='fabricated: the random detector finds no real heads',
          gaze='l2cs config at 224 px, seeded random weights, f32, '
               '2 persons x 20 frames, 224 px crops',
-         gaze_forwards=forwards, k1_launches=launches, gaze_seconds=gaze_s,
+         gaze_forwards=forwards, k1_launches=launches, k1_on_card=ran['k1'],
+         replayed_forwards=ran['replayed'], gaze_seconds=gaze_s,
          fused_gaze_norm_err=norm_err, card=nvidia_smi())
     return launches
 
@@ -3417,19 +3491,25 @@ def phase_tp(device, steps=2, clips=None, opts=(), lengths=(33, 19)):
                           ('tp', r0['checkpoints'][-1])):
             path = os.path.join(root, f'results_{tag}.json')
             roi_align_cuda.launch_count = 0
-            test_cli.main([TRAIN_CONFIG, ckpt, '--json', ann, '--root',
-                           frames, '--out', path, '--device', str(device),
-                           '--dtype', 'float32', '--cfg-options',
-                           'eval_cfg.crop_ratio=None', *opts])
-            if device.type == 'cuda':
-                torch.cuda.synchronize()
+            with on_card(device) as ran:
+                test_cli.main([TRAIN_CONFIG, ckpt, '--json', ann, '--root',
+                               frames, '--out', path, '--device',
+                               str(device), '--dtype', 'float32',
+                               '--cfg-options', 'eval_cfg.crop_ratio=None',
+                               *opts])
+                if device.type == 'cuda':
+                    torch.cuda.synchronize()
             test_launches = roi_align_cuda.launch_count
             results[tag] = check_results(path, lengths, 'float32')[0]
         fwds = sum(-(-len(clip_slices(n, 7, 4)) // 8) for n in lengths)
         if device.type == 'cuda':
-            check(test_launches == stages * fwds, f'tp test launched '
-                  f'{test_launches} K1, expected {stages} per forward over '
+            check(ran['k1'] == stages * fwds, f'tp test: the card ran K1 '
+                  f'{ran["k1"]} times, expected {stages} per forward over '
                   f'{fwds}')
+            check(test_launches == stages * (fwds - ran['replayed']),
+                  f'tp test launched {test_launches} K1, expected {stages} '
+                  f'per forward over {fwds}, {ran["replayed"]} of them '
+                  'replayed graphs')
         check(results['tp_0'] == results['mesh11_0'], 'tools.test on the '
               'tp ckpt_0 wrote other results than on the 1,1 one')
         test_err = results_err(results['tp'], results['mesh11'])
@@ -3661,7 +3741,7 @@ def phase_tp_learned(device, work):
                           ('tp', r0['checkpoint'])):
             out = os.path.join(root, f'results_{tag}.json')
             roi_align_cuda.launch_count = 0
-            with exact_f32(), npy_frames():
+            with exact_f32(), npy_frames(), on_card(device) as card:
                 ran = test_cli.main([
                     cfg_path, path, '--json',
                     os.path.join(work, 'anno.json'), '--root',
@@ -3676,9 +3756,13 @@ def phase_tp_learned(device, work):
         fwds = sum(-(-len(clip_slices(n, ev.clip_length, ev.stride))
                      // ev.clip_batch) for n in lengths)
         if device.type == 'cuda':
-            check(test_launches == stages * fwds, f'tp_learned test '
-                  f'launched {test_launches} K1, expected {stages} per '
+            check(card['k1'] == stages * fwds, f'tp_learned test: the card '
+                  f'ran K1 {card["k1"]} times, expected {stages} per '
                   f'forward over {fwds}')
+            check(test_launches == stages * (fwds - card['replayed']),
+                  f'tp_learned test launched {test_launches} K1, expected '
+                  f'{stages} per forward over {fwds}, {card["replayed"]} of '
+                  'them replayed graphs')
         test_err = results_err(results['tp'], results['mesh11'])
     finally:
         shutil.rmtree(root, ignore_errors=True)

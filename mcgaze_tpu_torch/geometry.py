@@ -19,6 +19,24 @@ DELTA_MEANS = (0.0, 0.0, 0.0, 0.0)
 DELTA_STDS = (0.5, 0.5, 1.0, 1.0)
 WH_RATIO_CLIP = 16.0 / 1000.0
 
+_consts: dict = {}
+
+
+def device_const(values, dtype: torch.dtype,
+                 device: torch.device) -> torch.Tensor:
+    """`values` as a `dtype` tensor on `device`, made once a device and
+    dtype: a copy from host memory may not run while a CUDA graph is being
+    captured (evaluation/forward.py::EvalGraphs). Made outside inference
+    mode, so a training step can save it for its backward after an eval
+    call made it."""
+    key = (tuple(values), dtype, device)
+    t = _consts.get(key)
+    if t is None:
+        with torch.inference_mode(False):
+            t = _consts[key] = torch.as_tensor(values, dtype=dtype,
+                                               device=device)
+    return t
+
 
 def bbox_cxcywh_to_xyxy(boxes: torch.Tensor) -> torch.Tensor:
     """(..., 4) [cx, cy, w, h] -> [x1, y1, x2, y2]."""
@@ -40,8 +58,8 @@ def delta2bbox(rois: torch.Tensor, deltas: torch.Tensor,
     """Decode (dx, dy, dw, dh) deltas against (..., 4) xyxy base boxes:
     denormalise, clamp dw/dh to +-|log(wh_ratio_clip)|, shift and scale
     the box. Returns (..., 4) xyxy."""
-    means = torch.as_tensor(means, dtype=deltas.dtype, device=deltas.device)
-    stds = torch.as_tensor(stds, dtype=deltas.dtype, device=deltas.device)
+    means = device_const(means, deltas.dtype, deltas.device)
+    stds = device_const(stds, deltas.dtype, deltas.device)
     dx, dy, dw, dh = (deltas * stds + means).unbind(-1)
     max_ratio = abs(math.log(wh_ratio_clip))
     dw = dw.clamp(-max_ratio, max_ratio)
@@ -75,8 +93,8 @@ def bbox2delta(proposals: torch.Tensor, gt: torch.Tensor,
     gh = gt[..., 3] - gt[..., 1]
     deltas = torch.stack([(gx - px) / pw, (gy - py) / ph,
                           torch.log(gw / pw), torch.log(gh / ph)], dim=-1)
-    means = torch.as_tensor(means, dtype=deltas.dtype, device=deltas.device)
-    stds = torch.as_tensor(stds, dtype=deltas.dtype, device=deltas.device)
+    means = device_const(means, deltas.dtype, deltas.device)
+    stds = device_const(stds, deltas.dtype, deltas.device)
     return (deltas - means) / stds
 
 

@@ -35,10 +35,15 @@ The spans of the main paths (names `mcgaze.<layer>`): `eval` (root:
 (`extract_features`), `heads` and a child `heads.stage<i>` a query stage
 (`run_heads`), `select` (the last stage's outputs, the top-k tracks);
 `train` (root: `train/loop.py::make_train_step`) with `train.forward`,
-`train.backward` and `train.update`. The one counter is
-`weight_cast_bytes`: the bytes of f32 parameters converted to another
-dtype at use (`models/layers.py`, the heads' stacked clue weights); a
-same-dtype `.to()` copies nothing and counts nothing.
+`train.backward` and `train.update`; `eval_graph` (a CUDA graph's replay
+inside the gaze `eval` root, `evaluation/forward.py::EvalGraphs`: a
+replayed call opens no model span). Counters: `weight_cast_bytes`, the
+bytes of f32 parameters converted to another dtype at use
+(`models/layers.py`, the heads' stacked clue weights; a same-dtype `.to()`
+copies nothing and counts nothing; a replay's casts are not counted), and
+EvalGraphs' `eval_graph_eager`, `eval_graph_captures` and
+`eval_graph_replays`. The kernels' launch counters count their wrappers'
+calls, so a root's `launch_count.k*` deltas leave a replay's kernels out.
 
 The kernels are called through ctypes outside the dispatcher, where no
 dispatch mode sees them. cost_analysis runs the call inside
